@@ -1,0 +1,10 @@
+"""PyTorch and CUDA port of the Bayesian workflow partitioner.
+
+Mirrors the layout of the JAX package ``repro`` (``core``, ``kernels``,
+``sched``) and never imports it or JAX.  Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``; the kernels are hand-written for
+Hopper and built with ``nvcc`` at first use.
+"""
+from . import convert, core, kernels, sched
+
+__all__ = ["convert", "core", "kernels", "sched"]

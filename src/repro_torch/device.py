@@ -1,0 +1,21 @@
+"""Device choice for the port's entry points.
+
+Entry points (``sched.init``, ``core.fit``, ``core.fit_fleet``,
+``core.fit_dag``) run on the card unless the caller names another device.
+With no device given and no CUDA device present they raise: the port never
+carries on on the CPU unasked.  Every other function follows the device of
+its input tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,96 @@
+"""Public wrappers around the hand-written kernels.
+
+Each wrapper dispatches on the device of its tensors: CUDA tensors launch the
+kernel (or raise), CPU tensors run the kernel's plain PyTorch version.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import Tensor
+
+from .posterior_grid import posterior_grid_fleet as _posterior_grid_fleet
+
+
+def posterior_grid_fleet(
+    grid: Tensor,
+    t: Tensor,
+    f: Tensor,
+    mu: Tensor,
+    lam: Tensor,
+    alpha: Tensor,
+    beta: Tensor,
+    alpha_prior,
+    beta_prior,
+    mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Both exponent posteriors for a whole fleet in one kernel launch.
+
+    Signature mirrors ``repro_torch.core.moments.log_posterior_grid``:
+    t/f/mask (..., N), per-worker scalars broadcastable to (...) ->
+    (..., 2, G).  Stacked leading axes — a workflow DAG's (S, K, N) block,
+    or none for a single unit — are folded into one fleet axis before the
+    launch and unfolded after it, so the whole stack still costs ONE launch.
+    """
+    if mask is None:
+        mask = torch.ones_like(t)
+    lead = t.shape[:-1]
+    n = t.shape[-1]
+    flat_kn = lambda x: torch.broadcast_to(x, t.shape).reshape(-1, n)
+    flat_k = lambda x: torch.broadcast_to(
+        torch.as_tensor(x, dtype=torch.float32, device=t.device), lead
+    ).reshape(-1)
+    out = _posterior_grid_fleet(
+        grid, flat_kn(t), flat_kn(f), flat_kn(mask),
+        flat_k(mu), flat_k(lam), flat_k(alpha), flat_k(beta),
+        flat_k(alpha_prior.a), flat_k(alpha_prior.b),
+        flat_k(beta_prior.a), flat_k(beta_prior.b),
+    )
+    return out.reshape(*lead, *out.shape[1:])
+
+
+class _Prior(NamedTuple):
+    a: float = 2.0  # the unused mode's dummy prior (BetaParams.default)
+    b: float = 2.0
+
+
+def _single_mode(grid, t, f, mu, lam, alpha, beta, alpha_prior, beta_prior, mask, mode):
+    return posterior_grid_fleet(
+        grid, t, f, mu, lam, alpha, beta,
+        alpha_prior if alpha_prior is not None else _Prior(),
+        beta_prior if beta_prior is not None else _Prior(),
+        mask,
+    )[..., mode, :]
+
+
+def posterior_grid_alpha(
+    grid: Tensor,
+    t: Tensor,
+    f: Tensor,
+    mu: Tensor,
+    lam: Tensor,
+    beta: Tensor,
+    prior,
+    mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Eq 10 on a grid: the alpha row of the fused launch.
+
+    Production code that needs both exponents calls ``posterior_grid_fleet``
+    once; this slice computes, and discards, the beta row too."""
+    return _single_mode(grid, t, f, mu, lam, 0.5, beta, prior, None, mask, 0)
+
+
+def posterior_grid_beta(
+    grid: Tensor,
+    t: Tensor,
+    f: Tensor,
+    mu: Tensor,
+    lam: Tensor,
+    alpha: Tensor,
+    prior,
+    mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Eq 11 on a grid: the beta row of the fused launch (see
+    ``posterior_grid_alpha``)."""
+    return _single_mode(grid, t, f, mu, lam, alpha, 0.5, None, prior, mask, 1)

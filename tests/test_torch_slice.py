@@ -1,0 +1,104 @@
+"""The port's first slice end to end: observe -> propose -> quantize.
+
+A reference scheduler state crosses over through ``repro_torch.convert``
+and the port's decisions from it agree with the reference's; the port's own
+cycle rebalances a heterogeneous fleet on the CPU; the package stands alone
+(no JAX, no ``repro``); and the entry points refuse to run on the CPU unasked.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import sched as js
+from repro_torch import convert
+from repro_torch import sched as ts
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG = dict(n_iters=4, grid_size=32, num_points=128, opt_steps=40)
+
+
+def _telemetry(rng, fracs, mu, n):
+    f = (fracs[:, None] * np.exp(rng.uniform(-0.5, 0.5, (len(fracs), n)))).astype(np.float32)
+    t = (f**0.9 * mu[:, None] + f**0.7 * 0.3 * rng.normal(size=f.shape)).astype(np.float32)
+    return f, t
+
+
+def test_decisions_from_a_carried_over_state_match_reference():
+    k = 4
+    jcfg = js.SchedulerConfig(**CFG, mu_guess=10.0)
+    tcfg = ts.SchedulerConfig(**CFG, mu_guess=10.0)
+    rng = np.random.default_rng(0)
+    mu = np.asarray([5.0, 10.0, 20.0, 40.0])
+    state = js.init(jcfg, k, jax.random.PRNGKey(0))
+    for _ in range(2):
+        f, t = _telemetry(rng, np.full(k, 1.0 / k), mu, 24)
+        state, _ = js.observe(state, js.Telemetry(jnp.asarray(f), jnp.asarray(t)), jcfg)
+    port = convert.to_scheduler_state(jax.tree_util.tree_map(np.asarray, state), seed=0, device="cpu")
+    assert int(port.step) == 2
+
+    for got, want in zip(ts.unit_params(port), js.unit_params(state)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+    want_f, want_s = js.propose(state, jcfg)
+    got_f, got_s = ts.propose(port, tcfg)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), atol=1e-3)
+    np.testing.assert_allclose(float(got_s.score), float(want_s.score), rtol=1e-4)
+
+    want_c = js.quantize_fractions(np.asarray(want_f), 8 * k, js.unit_params(state))
+    got_c = ts.quantize_fractions(got_f.numpy(), 8 * k, ts.unit_params(port))
+    np.testing.assert_array_equal(got_c, want_c)
+
+
+def test_port_cycle_rebalances_a_heterogeneous_fleet():
+    """K = 16 workers, the fastest 8x faster than the slowest: after three
+    observe -> propose -> quantize cycles the fast worker carries the most
+    work and the counts sum to the total (tests/test_partitioner.py's
+    acceptance scenario, at fleet width).  One refinement pass keeps the
+    CPU test short."""
+    k, total = 16, 8 * 16
+    cfg = ts.SchedulerConfig(**CFG, mu_guess=10.0)
+    rng = np.random.default_rng(1)
+    mu = np.linspace(5.0, 40.0, k)
+    state = ts.init(cfg, k, seed=0, device="cpu")
+    fracs = np.full(k, 1.0 / k)
+    for _ in range(3):
+        f, t = _telemetry(rng, fracs, mu, 32)
+        state, ll = ts.observe(state, ts.Telemetry(torch.as_tensor(f), torch.as_tensor(t)), cfg)
+        assert torch.isfinite(ll).all()
+        proposal, stats = ts.propose(state, cfg)
+        fracs = proposal.numpy().astype(np.float64)
+        counts = ts.quantize_fractions(fracs, total, ts.unit_params(state), refine_passes=1)
+        assert counts.sum() == total and (counts >= 1).all()
+    np.testing.assert_allclose(fracs.sum(), 1.0, rtol=1e-5)
+    assert int(np.argmax(fracs)) == 0 and fracs[0] > 3 * fracs[-1]
+    assert counts[0] == counts.max() and counts[0] > counts[-1]
+    assert int(state.step) == 3
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.sched\n"
+        "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.core.gibbs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"),
+                                                      "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_init_without_a_device_raises_on_a_cpu_machine():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: init would use it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ts.init(ts.SchedulerConfig(), 4)
