@@ -4,31 +4,48 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure exits non-zero before the
-last line:
+result lines:
 
   1. environment: the card's name and power limit, torch and CUDA versions,
      TF32 off;
-  2. build: every CUDA kernel of the port, from ``src/repro_torch/kernels/csrc``,
+  2. build: every CUDA kernel of the port (K1 posterior grid, K2 decode
+     attention, K3 linear-recurrence scan), from ``src/repro_torch/kernels/csrc``,
      into ``build/kernels`` (one ``nvcc`` per source, all started together);
   3. each kernel against its plain PyTorch version on the card, at odd
-     shapes and at the shapes the main path gives it;
-  4. each kernel's time at the main path's shape (median of CUDA-event runs
-     after warm-up), its plain version's time and its bound;
+     shapes, at the reference kernel tests' shapes and at the shapes the main
+     paths give it;
+  4. each kernel's device time at its main path's shape (median of
+     CUDA-event-timed replays of a CUDA graph of repeated calls), its plain
+     version's time, its bound, and for K2 the time of
+     ``scaled_dot_product_attention`` on the same inputs;
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
      per objective;
-  6. the fleet cycle, the main path: K = 4096 heterogeneous workers, 3 cycles
-     of observe (N = 256) -> propose -> quantize (8 K microbatches), observe
-     and propose under ``torch.cuda.set_sync_debug_mode("error")``; kernel
-     launch counts, finite fractions summing to 1, counts summing to the
-     total, and the share of the oracle's gain over the uniform split that
-     the learned split recovers (>= 80 %).
+  6. the fleet cycle, slice 1's main path: K = 4096 heterogeneous workers, 3
+     cycles of observe (N = 256) -> propose -> quantize (8 K microbatches),
+     observe and propose under ``torch.cuda.set_sync_debug_mode("error")``;
+     K1 launches (3 x 20), finite fractions summing to 1, counts summing to
+     the total, and the share of the oracle's gain over the uniform split that
+     the learned split recovers (>= 80 %);
+  7. serving, slice 2's main path: recurrentgemma-2b at full width (bf16
+     parameters from seed 0) through ``repro_torch.launch.serve.latency_demo``,
+     batch 4, 4096-token random prompts, 32 greedy tokens, float32 cache;
+     prefill and decode times, peak device memory, K3 launches (18, one per
+     RG-LRU layer of the prefill), K2 launches (8 x 31, one per attention
+     layer of each decode step) and finite logits;
+  8. teacher forcing at full width: the same model in float32, prefill of
+     2100 tokens (past the 2048-token window) and 3 teacher-forced decode
+     steps against ``forward_train``'s logits (rtol 2e-2, atol 2e-3, as
+     tests/test_models.py).
 
-The line before the last is a JSON object with every kernel's launches,
-error and times; the last is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device, or outside a checkout of the repository, it fails.
+Then three result lines: a JSON object with every kernel's route, source,
+launches on its main path, error against its plain version, times, bound
+and library time; the card's name and power limit as ``nvidia-smi`` gives
+them; and last ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+outside a checkout of the repository, it fails.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -117,7 +134,7 @@ def phase_build():
         f"into {build.BUILD_DIR.relative_to(ROOT)}")
 
 
-def phase_kernel_parity():
+def phase_k1_parity():
     """K1 against its plain version at odd and main-path shapes."""
     import torch
     from repro_torch.kernels.posterior_grid import posterior_grid_fleet, posterior_grid_plain
@@ -143,42 +160,215 @@ def phase_kernel_parity():
     return worst
 
 
-def time_cuda(fn, runs: int, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` over ``runs`` CUDA-event-timed calls."""
+def assert_close(got, want, rtol, atol) -> float:
+    """|got - want| <= atol + rtol * |want| everywhere, as
+    np.testing.assert_allclose; returns max |err|."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"disagrees: max|err| {float(err.max()):.3e} > {atol:g} + {rtol:g} |want|")
+    return float(err.max())
+
+
+# K2 at the serving path's decode: recurrentgemma-2b's local attention over a
+# full window (B 4, H 10, KVH 1, D 256, S 2048), bfloat16 q, float32 cache.
+K2_PATH = (4, 10, 1, 256, 2048)
+# K3 at the serving path's prefill: B 4, T 4096, R 2560, float32.
+K3_PATH = (4, 4096, 2560)
+
+
+def decode_case(b, h, kvh, d, s, seed, q_dtype, kv_dtype, length=None):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    q, k, v = rn(b, h, d).to(q_dtype), rn(b, s, kvh, d).to(kv_dtype), rn(b, s, kvh, d).to(kv_dtype)
+    if length is None:
+        length = torch.randint(1, s + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    else:
+        length = torch.as_tensor(length, dtype=torch.int32, device="cuda")
+    return q, k, v, length
+
+
+def scan_case(b, t, r, seed, dtype):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    return torch.sigmoid(rn(b, t, r)).to(dtype), rn(b, t, r).to(dtype), rn(b, r).to(dtype)
+
+
+def phase_k2_parity():
+    """K2 against its plain version: tests/test_kernels.py's shapes in both
+    types, the empty tail, and the serving path's shape with lengths 1 and S."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((b, h, kvh, d, s), dt, dt, None, 2e-5 if dt == f32 else 2e-2)
+             for (b, h, kvh, d, s) in [(2, 8, 2, 64, 300), (1, 4, 4, 32, 128), (3, 9, 3, 16, 1000)]
+             for dt in (f32, bf16)]
+    cases.append(((2, 4, 1, 32, 2048), f32, f32, [5, 17], 1e-5))  # empty tail
+    s = K2_PATH[-1]
+    cases.append((K2_PATH, bf16, f32, [1, s, 1000, s - 1], 2e-2))  # the serving path
+    cases.append((K2_PATH, f32, f32, [1, s, 1000, s - 1], 2e-5))  # its teacher-forced check
+    worst = 0.0
+    for i, (shape, q_dt, kv_dt, length, tol) in enumerate(cases):
+        args = decode_case(*shape, seed=100 + i, q_dtype=q_dt, kv_dtype=kv_dt, length=length)
+        got = decode_attention(*args)
+        want = decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = assert_close(got, want, tol, tol)
+        worst = max(worst, err)
+        say(f"[k2-parity] (B, H, KVH, D, S)={shape} q {q_dt} cache {kv_dt} "
+            f"lengths {args[3].tolist()}: max|err| {err:.3e} within {tol:g}")
+    return worst
+
+
+def phase_k3_parity():
+    """K3 against its plain version: tests/test_kernels.py's shapes in both
+    types, the continuation case, and the serving path's prefill shape."""
+    import torch
+    from repro_torch.kernels.lru_scan import lru_scan, lru_scan_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = 0.0
+    cases = [((b, t, r), dt, 1e-5 if dt == f32 else 4e-2)
+             for (b, t, r) in [(2, 64, 128), (1, 100, 300), (3, 17, 64)] for dt in (f32, bf16)]
+    cases.append((K3_PATH, f32, 1e-5))
+    for i, (shape, dt, tol) in enumerate(cases):
+        a, x, h0 = scan_case(*shape, seed=200 + i, dtype=dt)
+        got = lru_scan(a, x, h0)
+        want = lru_scan_plain(a, x, h0)
+        torch.cuda.synchronize()
+        err = assert_close(got, want, tol, tol)
+        worst = max(worst, err)
+        say(f"[k3-parity] (B, T, R)={shape} {dt}: max|err| {err:.3e} within {tol:g}")
+    # continuation: [0:k] then [k:] from the carried state equals one pass
+    a, x, _ = scan_case(2, 48, 64, seed=300, dtype=f32)
+    h0 = torch.zeros((2, 64), device="cuda")
+    full = lru_scan(a, x, h0)
+    first = lru_scan(a[:, :20], x[:, :20], h0)
+    second = lru_scan(a[:, 20:], x[:, 20:], first[:, -1])
+    err = assert_close(second, full[:, 20:], 1e-5, 1e-5)
+    worst = max(worst, err)
+    say(f"[k3-parity] continuation (2, 48, 64) split at 20: max|err| {err:.3e} within 1e-05")
+    return worst
+
+
+def time_cuda(fn, runs: int, reps: int = 10) -> float:
+    """Median device milliseconds of one ``fn`` call: ``reps`` calls captured
+    in a CUDA graph (after a warm-up on a side stream), the graph replayed
+    ``runs`` times between CUDA events.  Replay leaves out the host's launch
+    overhead, which the port's eager callers still pay (PERF.md)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
-def phase_kernel_timing():
+def bound(ops: float, nbytes: float, peak_ops: float):
+    """The least time for ``ops`` operations and ``nbytes`` bytes: (ms, which binds)."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_k1_timing():
     from repro_torch.kernels.posterior_grid import posterior_grid_fleet, posterior_grid_plain
 
     k, g, n = K_FLEET, GRID, N_OBS
     args = fleet_case(k, g, n, seed=7, device="cuda")
     ms = time_cuda(lambda: posterior_grid_fleet(*args), runs=30)
-    plain_ms = time_cuda(lambda: posterior_grid_plain(*args), runs=10)
+    plain_ms = time_cuda(lambda: posterior_grid_plain(*args), runs=5, reps=3)
     # ~10 float32 operations per (k, g, n) cell (exp and reciprocal counted
     # as one each, a fused multiply-add as two); bytes: t, f, mask, the
     # per-worker scalars and the grid read once, the (K, 2, G) output written.
     ops = 10.0 * k * g * n
     nbytes = 4.0 * (3 * k * n + 8 * k + g + 2 * k * g)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms, bound_by = max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
     say(f"[k1-time] K={k} G={g} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes); "
         f"no single library call computes this function")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def round_robin(fn, cases):
+    """A call of ``fn`` on the next input set of ``cases``, in turn."""
+    it = itertools.cycle(cases)
+    return lambda: fn(*next(it))
+
+
+def phase_k2_timing():
+    """K2 at the serving path's decode shape, every cache row valid.  Calls
+    take four input sets in turn (67 MB, more than the 50 MB L2), so the cache
+    comes from device memory as in a decode step, where 25 other layers'
+    weights and caches pass through L2 between two visits of one layer."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    b, h, kvh, d, s = K2_PATH
+    cases = [decode_case(*K2_PATH, seed=7 + i, q_dtype=torch.bfloat16, kv_dtype=torch.float32,
+                         length=[s] * b) for i in range(4)]
+    ms = time_cuda(round_robin(decode_attention, cases), runs=30, reps=20)
+    plain_ms = time_cuda(round_robin(decode_attention_plain, cases), runs=30, reps=20)
+    # The library yardstick: SDPA on the same q, k, v (q in the cache's type,
+    # heads first) with a boolean length mask.
+    sdpa_cases = [(q.float()[:, :, None, :], k.transpose(1, 2).contiguous(),
+                   v.transpose(1, 2).contiguous(),
+                   (torch.arange(s, device="cuda")[None, :] < n[:, None])[:, None, None, :])
+                  for q, k, v, n in cases]
+    sdpa = lambda q4, k4, v4, mask: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    library_ms = time_cuda(round_robin(sdpa, sdpa_cases), runs=30, reps=20)
+    q, k, _, length = cases[0]
+    # 2 operations per multiply-add: q.k and p.v over every valid row and head
+    ops = 4.0 * b * h * s * d
+    nbytes = (q.numel() * 2 + 2 * k.numel() * 4 + length.numel() * 4 + q.numel() * 2)
+    bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
+    say(f"[k2-time] (B, H, KVH, D, S)={K2_PATH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({ops:.3e} ops, {nbytes:.3e} bytes)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def phase_k3_timing():
+    """K3 at the serving path's prefill shape."""
+    from repro_torch.kernels.lru_scan import lru_scan, lru_scan_plain
+    import torch
+
+    b, t, r = K3_PATH
+    a, x, h0 = scan_case(*K3_PATH, seed=7, dtype=torch.float32)
+    ms = time_cuda(lambda: lru_scan(a, x, h0), runs=20)
+    plain_ms = time_cuda(lambda: lru_scan_plain(a, x, h0), runs=5, reps=3)
+    ops = 2.0 * b * t * r  # one multiply-add per element
+    nbytes = 4.0 * (3 * b * t * r + b * r)  # a, b read, h written, h0 read
+    bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
+    say(f"[k3-time] (B, T, R)={K3_PATH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes); "
+        f"no single library call computes a linear recurrence")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def phase_quickstart():
@@ -299,30 +489,136 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
     return launches, gap
 
 
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "recurrentgemma-2b", 4, 4096, 32
+TF_BATCH, TF_PREFILL, TF_STEPS = 2, 2100, 3
+TF_TOL = dict(rtol=2e-2, atol=2e-3)  # tests/test_models.py's decode-vs-teacher-forcing
+
+
+def phase_serve():
+    """Slice 2's main path: serve recurrentgemma-2b at full width."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import latency_demo
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import ApplyCtx
+    from repro_torch.models.params import leaves
+
+    cfg = get_arch(SERVE_ARCH)
+    params = model_zoo.init_model_params(cfg, seed=0)
+    n_params = sum(p.numel() for p in leaves(params))
+    say(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters in {cfg.dtype}, "
+        f"{cfg.num_layers} layers of pattern {cfg.pattern}")
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT)
+    warm = latency_demo(cfg, params, gen_len=2, **kw)  # CUDA and cuBLAS set-up, same shapes
+    say(f"[serve] warm-up (prefill + 1 step): prefill {warm['prefill_ms']:.1f} ms")
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = latency_demo(cfg, params, gen_len=SERVE_GEN, **kw)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = out["tokens"]
+    # the logits of one more step on the final cache: finite and of the vocabulary's width
+    logits, _ = model_zoo.decode_step(cfg, params, tokens[:, -1:], out["cache"],
+                                      ctx=ApplyCtx(mode="decode"))
+    if logits.shape != (SERVE_BATCH, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite or misshapen")
+    if tokens.shape != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(tokens.shape)} out of shape or range")
+    say(f"[serve] batch {SERVE_BATCH} prompt {SERVE_PROMPT} gen {SERVE_GEN}: prefill "
+        f"{out['prefill_ms']:.1f} ms, decode {out['decode_ms']:.2f} ms/token, peak device "
+        f"memory {peak / 2**30:.2f} GiB, logits finite")
+    say(f"[serve] generated token ids (seq 0): {tokens[0].tolist()}")
+    say(f"[serve] launches on the main path: {launches}")
+    return launches
+
+
+def phase_teacher_forcing():
+    """Prefill past the window, then teacher-forced decode steps, against the
+    full-sequence forward, all at full width in float32."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import ApplyCtx
+    from repro_torch.models.params import tree_map
+
+    cfg = get_arch(SERVE_ARCH)
+    params = tree_map(lambda t: t.float(), model_zoo.init_model_params(cfg, seed=0))
+    total = TF_PREFILL + TF_STEPS
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TF_BATCH, total)),
+                           dtype=torch.int32, device=params["embed"].device)
+    full, _ = model_zoo.forward_train(cfg, params, {"tokens": toks}, ctx=ApplyCtx(mode="train"))
+    want = full[:, TF_PREFILL - 1:].clone()  # (B, 1 + steps, V)
+    del full
+    cache = model_zoo.init_cache(cfg, TF_BATCH, total + 8, torch.float32)
+    got, cache = model_zoo.prefill(cfg, params, {"tokens": toks[:, :TF_PREFILL]}, cache,
+                                   ctx=ApplyCtx(mode="prefill"))
+    steps = [got]
+    for j in range(TF_PREFILL, total):
+        got, cache = model_zoo.decode_step(cfg, params, toks[:, j:j + 1], cache,
+                                           ctx=ApplyCtx(mode="decode"))
+        steps.append(got)
+    worst = 0.0
+    for i, got in enumerate(steps):
+        err = assert_close(got, want[:, i], **TF_TOL)
+        worst = max(worst, err)
+        what = "prefill" if i == 0 else f"decode step {i}"
+        say(f"[teacher] {what} (position {TF_PREFILL - 1 + i}): max|err| {err:.3e} against "
+            f"forward_train, max|logit| {float(want[:, i].abs().max()):.3f}")
+    say(f"[teacher] {cfg.name} float32, batch {TF_BATCH}, prefill {TF_PREFILL} > window "
+        f"{cfg.local_window}, {TF_STEPS} decode steps: within rtol {TF_TOL['rtol']} "
+        f"atol {TF_TOL['atol']}, worst {worst:.3e}")
+    return worst
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
     import torch
+    from repro_torch.configs import get_arch
 
-    err = phase_kernel_parity()
-    timing = phase_kernel_timing()
+    errs = dict(posterior_grid_fleet=phase_k1_parity(), decode_attention=phase_k2_parity(),
+                lru_scan=phase_k3_parity())
+    timing = dict(posterior_grid_fleet=phase_k1_timing(), decode_attention=phase_k2_timing(),
+                  lru_scan=phase_k3_timing())
     phase_quickstart()
-    launches, gap = phase_fleet()
+    fleet_launches, gap = phase_fleet()
     expected = CYCLES * SWEEPS
-    if launches.get("posterior_grid_fleet") != expected:
-        raise AssertionError(f"K1 launched {launches} times on the main path, not {expected}")
+    if fleet_launches.get("posterior_grid_fleet") != expected:
+        raise AssertionError(f"K1 launched {fleet_launches} times on the fleet path, not {expected}")
     if gap < 0.8:
         raise AssertionError(f"oracle gap recovered {100 * gap:.1f} % < 80 %")
+    serve_launches = phase_serve()
+    cfg = get_arch(SERVE_ARCH)
+    n = len(cfg.pattern)
+    kinds = cfg.pattern * (cfg.num_layers // n) + cfg.pattern[: cfg.num_layers % n]
+    want = dict(lru_scan=kinds.count("rglru"),  # once per RG-LRU layer of the prefill
+                decode_attention=kinds.count("localattn") * (SERVE_GEN - 1))  # per decode step
+    for name, n in want.items():
+        if serve_launches.get(name) != n:
+            raise AssertionError(f"{name} launched {serve_launches.get(name)} times in serving, not {n}")
+    phase_teacher_forcing()
+    launches = dict(posterior_grid_fleet=fleet_launches["posterior_grid_fleet"],
+                    decode_attention=serve_launches["decode_attention"],
+                    lru_scan=serve_launches["lru_scan"])
+    kernels = [
+        ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),
+        ("decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:81"),
+        ("lru_scan", "lru_scan.cu", "src/repro/kernels/lru_scan.py:52"),
+    ]
     say(json.dumps({"kernels": [dict(
-        name="posterior_grid_fleet",
+        name=name,
         route="cuda",
-        source="src/repro_torch/kernels/csrc/posterior_grid.cu",
-        replaces="src/repro/kernels/posterior_grid.py:108",
-        launches=launches["posterior_grid_fleet"],
-        max_abs_err=err,
-        library_ms=None,
-        **timing,
-    )]}))
+        source=f"src/repro_torch/kernels/csrc/{source}",
+        replaces=replaces,
+        launches=launches[name],
+        max_abs_err=errs[name],
+        **timing[name],
+    ) for name, source, replaces in kernels]}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

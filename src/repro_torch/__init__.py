@@ -1,10 +1,11 @@
 """PyTorch and CUDA port of the Bayesian workflow partitioner.
 
 Mirrors the layout of the JAX package ``repro`` (``core``, ``kernels``,
-``sched``) and never imports it or JAX.  Entry points run on the CUDA card
-unless the caller passes ``device="cpu"``; the kernels are hand-written for
-Hopper and built with ``nvcc`` at first use.
+``sched``, ``configs``, ``models``, ``train``, ``launch``) and never imports
+it or JAX.  Entry points run on the CUDA card unless the caller passes
+``device="cpu"``; the kernels are hand-written for Hopper and built with
+``nvcc`` at first use.
 """
-from . import convert, core, kernels, sched
+from . import configs, convert, core, kernels, models, sched, train
 
-__all__ = ["convert", "core", "kernels", "sched"]
+__all__ = ["configs", "convert", "core", "kernels", "models", "sched", "train"]

@@ -1,7 +1,9 @@
 """Device choice for the port's entry points.
 
 Entry points (``sched.init``, ``core.fit``, ``core.fit_fleet``,
-``core.fit_dag``) run on the card unless the caller names another device.
+``core.fit_dag``, ``models.model_zoo.init_model_params``,
+``models.model_zoo.init_cache`` and ``python -m repro_torch.launch.serve``)
+run on the card unless the caller names another device.
 With no device given and no CUDA device present they raise: the port never
 carries on on the CPU unasked.  Every other function follows the device of
 its input tensors.

@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from .decode_attention import decode_attention as _decode_attention
+from .lru_scan import lru_scan as _lru_scan
 from .posterior_grid import posterior_grid_fleet as _posterior_grid_fleet
 
 
@@ -94,3 +96,19 @@ def posterior_grid_beta(
     """Eq 11 on a grid: the beta row of the fused launch (see
     ``posterior_grid_alpha``)."""
     return _single_mode(grid, t, f, mu, lam, alpha, 0.5, None, prior, mask, 1)
+
+
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Optional[Tensor] = None) -> Tensor:
+    """Flash-decode GQA attention (B,H,D) x (B,S,KVH,D) -> (B,H,D); length
+    (B,) valid cache rows, all S by default."""
+    if length is None:
+        length = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+    return _decode_attention(q, k, v, length)
+
+
+def lru_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:
+    """Linear-recurrence scan h_t = a_t h_{t-1} + b_t (RG-LRU core); h0
+    (B, R) zeros by default."""
+    if h0 is None:
+        h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=a.dtype, device=a.device)
+    return _lru_scan(a, b, h0)

@@ -1,0 +1,59 @@
+"""Model zoo: config -> spec, parameters, apply, and parameter counts.
+
+The port's counterpart of ``repro.models.model_zoo`` for the decoder-only
+families it runs (dense and hybrid).  ``init_model_params`` and
+``init_cache`` are entry points: they run on the card unless a device is
+named.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import Tensor
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import transformer
+from .layers import ApplyCtx
+from .params import init_params, param_count as spec_param_count
+
+
+def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    return transformer.lm_spec(cfg)
+
+
+def model_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def init_model_params(cfg: ModelConfig, *, seed: int, device=None):
+    """Random parameters in the model dtype, drawn on ``device`` from a
+    generator seeded with ``seed``."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return init_params(model_spec(cfg), gen, model_dtype(cfg), device)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count from the spec tree."""
+    return spec_param_count(model_spec(cfg))
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor], *, ctx: ApplyCtx):
+    """(logits, aux_loss) for a batch dict (forward only)."""
+    return transformer.forward_train(cfg, params, batch["tokens"], ctx=ctx)
+
+
+def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor], cache, *, ctx: ApplyCtx):
+    return transformer.prefill(cfg, params, batch["tokens"], cache, ctx=ctx)
+
+
+def decode_step(cfg: ModelConfig, params, token: Tensor, cache, *, ctx: ApplyCtx):
+    return transformer.decode_step(cfg, params, token, cache, ctx=ctx)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: Optional[torch.dtype] = None,
+               *, device=None):
+    return transformer.init_cache(cfg, batch, max_len, dtype or model_dtype(cfg),
+                                  resolve_device(device))

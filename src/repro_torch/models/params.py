@@ -1,0 +1,69 @@
+"""Parameter specs: a model is a nested dict (and list) of ``P`` leaves.
+
+The port's counterpart of ``repro.models.params``: the same ``P`` leaves and
+the same trees, so a spec means the same parameters in both packages and the
+reference's parameter trees carry over leaf for leaf (``convert``).  The
+abstract and logical-axes trees of the reference serve its dry-run and
+sharding, which are not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+SpecTree = Any  # nested dict / list of P
+ParamTree = Any  # the same tree with tensors for leaves
+
+
+class P(NamedTuple):
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float = 0.02
+
+    def stacked(self, n: int, axis_name: str = "layers") -> "P":
+        return P((n, *self.shape), (axis_name, *self.axes), self.init, self.scale)
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of a tree of dicts and lists (dict keys in
+    sorted order, as JAX flattens them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, x) for x in tree]
+    return fn(tree)
+
+
+def leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def stack_spec(spec: SpecTree, n: int, axis_name: str = "layers") -> SpecTree:
+    """Add a leading stacked axis to every leaf (per-cycle storage)."""
+    return tree_map(lambda p: p.stacked(n, axis_name), spec)
+
+
+def init_params(spec: SpecTree, generator: torch.Generator, dtype=torch.float32,
+                device=None) -> ParamTree:
+    """Materialise a spec: normal(0, scale) leaves drawn from ``generator`` in
+    float32 on ``device`` (the generator's device), then cast to ``dtype``."""
+    device = generator.device if device is None else torch.device(device)
+
+    def make(p: P) -> torch.Tensor:
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dtype, device=device)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dtype, device=device)
+        x = torch.randn(p.shape, generator=generator, device=device, dtype=torch.float32)
+        return x.mul_(p.scale).to(dtype)
+
+    return tree_map(make, spec)
+
+
+def param_count(spec: SpecTree) -> int:
+    return sum(math.prod(p.shape) for p in leaves(spec))

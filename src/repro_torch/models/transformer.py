@@ -1,0 +1,211 @@
+"""LM assembly: embed -> layer-pattern cycles -> norm -> head.
+
+The port's counterpart of ``repro.models.transformer`` for the dense and
+hybrid (RG-LRU + local attention) families.  Parameters and caches keep the
+reference's layout: one stacked tree per pattern position with a leading
+``n_cycles`` axis, plus the unrolled remainder layers.  The layer loop is a
+Python loop over cycles; caches are written in place through views of the
+stacked tensors, and ``cache["length"]`` stays on the device, so a decode
+step never reads the device.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from ..configs.base import ModelConfig
+from . import recurrent as rec
+from .layers import (
+    ApplyCtx,
+    attention,
+    attention_spec,
+    init_attention_cache,
+    mlp,
+    mlp_spec,
+    rmsnorm,
+    rmsnorm_spec,
+)
+from .params import P, stack_spec, tree_map
+
+PORTED_KINDS = ("dense", "localattn", "rglru")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
+        raise ValueError(f"block kind {kind!r} is not ported; ported kinds: {PORTED_KINDS}")
+
+
+# ---------------------------------------------------------------------------
+# per-block spec / apply / cache
+# ---------------------------------------------------------------------------
+
+
+def block_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    _check_kind(kind)
+    d = cfg.d_model
+    if kind == "rglru":
+        spec = {"ln1": rmsnorm_spec(d), "mix": rec.rglru_spec(cfg)}
+    else:
+        spec = {"ln1": rmsnorm_spec(d), "attn": attention_spec(cfg)}
+    if cfg.d_ff > 0:
+        spec["ln2"] = rmsnorm_spec(d)
+        spec["ffn"] = mlp_spec(cfg)
+    return spec
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+                     device) -> Dict[str, Tensor]:
+    _check_kind(kind)
+    if kind == "rglru":
+        return rec.init_rglru_cache(cfg, batch, device)
+    window = cfg.local_window if kind == "localattn" else 0
+    return init_attention_cache(cfg, batch, max_len, dtype, device, window=window)
+
+
+def block_apply(
+    cfg: ModelConfig,
+    kind: str,
+    params: Dict[str, Any],
+    x: Tensor,
+    *,
+    ctx: ApplyCtx,
+    positions: Tensor,
+    length: Optional[Tensor],
+    cache: Optional[Dict[str, Tensor]],
+) -> Tensor:
+    """One block; its cache, if any, is updated in place."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if kind == "rglru":
+        y, _ = rec.rglru_block(cfg, params["mix"], h, ctx=ctx, cache=cache)
+    else:
+        window = cfg.local_window if kind == "localattn" else 0
+        y, _ = attention(cfg, params["attn"], h, ctx=ctx, window=window,
+                         positions=positions, length=length, cache=cache)
+    x = x + y
+    if "ffn" in params:
+        x = x + mlp(cfg, params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps))
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full-model spec
+# ---------------------------------------------------------------------------
+
+
+def _cycles_and_rest(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    pattern = cfg.pattern
+    return cfg.num_layers // len(pattern), pattern[: cfg.num_layers % len(pattern)]
+
+
+def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.vision_patches or cfg.use_bias or cfg.family not in ("dense", "hybrid"):
+        raise ValueError(f"{cfg.name}: only the dense and hybrid families, without biases, "
+                         f"are ported")
+    d, v = cfg.d_model, cfg.vocab_size
+    n_cycles, rest = _cycles_and_rest(cfg)
+    spec: Dict[str, Any] = {
+        "embed": P((v, d), ("vocab", "embed"), scale=1.0 / (d**0.5)),
+        "final_norm": rmsnorm_spec(d),
+        "cycles": [stack_spec(block_spec(cfg, kind), n_cycles) for kind in cfg.pattern],
+        "rest": [block_spec(cfg, kind) for kind in rest],
+    }
+    if not cfg.tie_embeddings:
+        spec["head"] = P((d, v), ("embed", "vocab"), scale=0.02)
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# full-model apply
+# ---------------------------------------------------------------------------
+
+
+def _embed(cfg: ModelConfig, params, tokens: Tensor) -> Tensor:
+    # the scale is cast to the embedding's dtype first: 50.5, not 50.596, in bf16
+    emb = params["embed"]
+    return emb[tokens] * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
+
+
+def _head(cfg: ModelConfig, params, x: Tensor) -> Tensor:
+    if cfg.tie_embeddings:
+        logits = torch.einsum("btd,vd->btv", x, params["embed"])
+    else:
+        logits = torch.einsum("btd,dv->btv", x, params["head"])
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def _at(tree, i: int):
+    """Cycle ``i`` of a stacked tree: views, so in-place writes reach the stack."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions: Tensor,
+               length: Optional[Tensor], cache: Optional[Dict[str, Any]]) -> Tensor:
+    """The layer loop: every cycle of the pattern, then the remainder."""
+    n_cycles, rest = _cycles_and_rest(cfg)
+    use = cache is not None
+    layers = [
+        (kind, _at(params["cycles"][j], i), _at(cache["cycles"][j], i) if use else None)
+        for i in range(n_cycles) for j, kind in enumerate(cfg.pattern)
+    ] + [(kind, params["rest"][j], cache["rest"][j] if use else None) for j, kind in enumerate(rest)]
+    for kind, p, c in layers:
+        x = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length, cache=c)
+    return x
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict[str, Any]:
+    """Decode cache for the whole stack and the position counter."""
+    n_cycles, rest = _cycles_and_rest(cfg)
+
+    def stacked(kind):
+        one = init_block_cache(cfg, kind, batch, max_len, dtype, device)
+        return tree_map(lambda t: t[None].repeat(n_cycles, *([1] * t.ndim)), one)
+
+    return {
+        "length": torch.zeros((), dtype=torch.int32, device=device),
+        "cycles": [stacked(kind) for kind in cfg.pattern],
+        "rest": [init_block_cache(cfg, kind, batch, max_len, dtype, device) for kind in rest],
+    }
+
+
+@torch.no_grad()
+def forward_train(cfg: ModelConfig, params, tokens: Tensor, *,
+                  ctx: ApplyCtx) -> Tuple[Tensor, Tensor]:
+    """Full-sequence forward (no gradient yet).  Returns (logits (B,T,V), aux)."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _head(cfg, params, x), torch.zeros((), device=x.device)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params, tokens: Tensor, cache: Dict[str, Any], *,
+            ctx: ApplyCtx) -> Tuple[Tensor, Dict[str, Any]]:
+    """Fill the cache in place; returns (last-position logits (B, V), cache)."""
+    x = _embed(cfg, params, tokens)
+    t = x.shape[1]
+    positions = torch.arange(t, device=x.device)
+    x = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=cache)
+    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    cache["length"].fill_(t)
+    return _head(cfg, params, x)[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params, token: Tensor, cache: Dict[str, Any], *,
+                ctx: ApplyCtx) -> Tuple[Tensor, Dict[str, Any]]:
+    """One decode step of token (B, 1), the cache advanced in place.  Returns
+    (logits (B, V), cache)."""
+    length = cache["length"]
+    x = _embed(cfg, params, token)
+    x = _run_stack(cfg, params, x, ctx=ctx, positions=length.reshape(1), length=length,
+                   cache=cache)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = _head(cfg, params, x)[:, 0]
+    length.add_(1)
+    return logits, cache

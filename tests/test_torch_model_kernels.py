@@ -1,0 +1,158 @@
+"""K2 (flash-decode attention) and K3 (linear-recurrence scan): the port's
+wrappers against the reference's Pallas kernels, run in interpret mode on
+the CPU exactly as tests/test_kernels.py runs them, at its cases.
+
+On a CPU tensor each wrapper runs its plain PyTorch version and no launch is
+counted; on a CUDA tensor it launches the hand-written kernel or raises.  The
+tests that need the card compare each kernel with its plain version there
+and skip elsewhere.  Tolerances are tests/test_kernels.py's: 2e-5 (float32)
+or 2e-2 (bfloat16) for K2, 1e-5 or 4e-2 for K3, 1e-5 for the empty tail and
+the continuation.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.decode_attention import decode_attention_pallas
+from repro.kernels.lru_scan import lru_scan_pallas
+from repro_torch import kernels
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+from repro_torch.kernels.lru_scan import lru_scan_cuda, lru_scan_plain
+
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+DECODE_CASES = [(2, 8, 2, 64, 300), (1, 4, 4, 32, 128), (3, 9, 3, 16, 1000)]
+SCAN_CASES = [(2, 64, 128, 16), (1, 100, 300, 32), (3, 17, 64, 128)]
+
+
+def _both(x, dtype):
+    """One numpy array as a JAX array and a tensor of the same dtype."""
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(x, jdt), torch.as_tensor(x).to(tdt)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _decode_inputs(b, h, kvh, d, s, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, s, kvh, d)).astype(np.float32)
+    v = rng.normal(size=(b, s, kvh, d)).astype(np.float32)
+    return q, k, v, rng.integers(1, s + 1, (b,)).astype(np.int32)
+
+
+def _scan_inputs(b, t, r, seed):
+    rng = np.random.default_rng(seed)
+    a = (1.0 / (1.0 + np.exp(-rng.normal(size=(b, t, r))))).astype(np.float32)
+    return a, rng.normal(size=(b, t, r)).astype(np.float32), rng.normal(size=(b, r)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kvh,d,s", DECODE_CASES)
+def test_decode_attention_matches_pallas(b, h, kvh, d, s, dtype):
+    q, k, v, length = _decode_inputs(b, h, kvh, d, s, seed=b + h + s)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    want = decode_attention_pallas(jq, jk, jv, jnp.asarray(length), block_s=128, interpret=True)
+    before = kernels.launch_counts()
+    got = ops.decode_attention(tq, tk, tv, torch.as_tensor(length))
+    assert got.dtype == tq.dtype and got.shape == (b, h, d)
+    _close(got, want, 2e-5 if dtype == "float32" else 2e-2)
+    assert kernels.launch_counts() == before  # a CPU tensor takes the plain version
+
+
+def test_decode_attention_empty_tail_matches_pallas():
+    """Fill far below capacity: rows past length must not contribute."""
+    q, k, v, _ = _decode_inputs(2, 4, 1, 32, 2048, seed=0)
+    length = np.asarray([5, 17], np.int32)
+    want = decode_attention_pallas(*map(jnp.asarray, (q, k, v, length)), block_s=256,
+                                   interpret=True)
+    _close(ops.decode_attention(*map(torch.as_tensor, (q, k, v, length))), want, 1e-5)
+
+
+def test_decode_attention_default_length_is_the_whole_cache():
+    q, k, v, _ = _decode_inputs(2, 6, 2, 16, 40, seed=3)
+    want = ref.decode_attention_ref(*map(jnp.asarray, (q, k, v)))
+    _close(ops.decode_attention(*map(torch.as_tensor, (q, k, v))), want, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,r,bt", SCAN_CASES)
+def test_lru_scan_matches_pallas(b, t, r, bt, dtype):
+    (ja, ta), (jx, tx), (jh, th) = (_both(x, dtype) for x in _scan_inputs(b, t, r, seed=b * t + r))
+    want = lru_scan_pallas(ja, jx, jh, block_t=bt, interpret=True)
+    before = kernels.launch_counts()
+    got = ops.lru_scan(ta, tx, th)
+    assert got.dtype == ta.dtype and got.shape == (b, t, r)
+    _close(got, want, 1e-5 if dtype == "float32" else 4e-2)
+    assert kernels.launch_counts() == before
+
+
+def test_lru_scan_continuation_matches_single_pass():
+    """[0:k] then [k:] from the carried state == one pass (the prefill ->
+    decode state hand-off), and both match the Pallas kernel."""
+    a, x, _ = (torch.as_tensor(y) for y in _scan_inputs(2, 48, 64, seed=0))
+    h0 = torch.zeros((2, 64))
+    full = ops.lru_scan(a, x, h0)
+    first = ops.lru_scan(a[:, :20], x[:, :20], h0)
+    second = ops.lru_scan(a[:, 20:], x[:, 20:], first[:, -1])
+    torch.testing.assert_close(second, full[:, 20:], rtol=1e-5, atol=1e-5)
+    _close(full, lru_scan_pallas(jnp.asarray(a), jnp.asarray(x), jnp.zeros((2, 64)),
+                                 block_t=16, interpret=True), 1e-5)
+
+
+def test_lru_scan_default_h0_is_zero():
+    a, x, _ = (torch.as_tensor(y) for y in _scan_inputs(2, 9, 5, seed=4))
+    torch.testing.assert_close(ops.lru_scan(a, x), ops.lru_scan(a, x, torch.zeros((2, 5))))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """The kernel paths never fall back: handed CPU tensors, they raise."""
+    q, k, v, length = map(torch.as_tensor, _decode_inputs(1, 2, 1, 16, 8, seed=1))
+    with pytest.raises(ValueError):
+        decode_attention_cuda(q, k, v, length)
+    a, x, h0 = map(torch.as_tensor, _scan_inputs(1, 4, 8, seed=1))
+    with pytest.raises(ValueError):
+        lru_scan_cuda(a, x, h0)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_kernel_matches_plain_on_card(dtype):
+    _needs_card()
+    tdt = DTYPES[dtype][1]
+    for i, case in enumerate(DECODE_CASES + [(4, 10, 1, 256, 2048)]):
+        dev = lambda x: torch.as_tensor(x, device="cuda")
+        q, k, v, length = (dev(x) for x in _decode_inputs(*case, seed=i))
+        q, k, v = q.to(tdt), k.to(tdt), v.to(tdt)
+        before = kernels.launch_counts()["decode_attention"]
+        got = ops.decode_attention(q, k, v, length)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["decode_attention"] == before + 1
+        _close(got.cpu(), decode_attention_plain(q, k, v, length).cpu(),
+               2e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lru_scan_kernel_matches_plain_on_card(dtype):
+    _needs_card()
+    tdt = DTYPES[dtype][1]
+    for b, t, r, _ in SCAN_CASES + [(4, 4096, 2560, 0)]:
+        a, x, h0 = (torch.as_tensor(y, device="cuda").to(tdt) for y in _scan_inputs(b, t, r, seed=t))
+        before = kernels.launch_counts()["lru_scan"]
+        got = ops.lru_scan(a, x, h0)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["lru_scan"] == before + 1
+        _close(got.cpu(), lru_scan_plain(a, x, h0).cpu(), 1e-5 if dtype == "float32" else 4e-2)

@@ -1,0 +1,333 @@
+"""The port's serving path (dense and hybrid families) against the reference.
+
+Weights are drawn with numpy from a seed along the reference's parameter
+spec, as its ``init_params`` draws them, and cross over to the port through
+``repro_torch.convert.model_params_from_jax``; inputs are made with numpy
+too and handed to both packages.  The reference's model calls are jitted.
+Everything runs in float32 on the CPU, where the port's kernel wrappers take
+their plain versions.
+
+Tolerances: modules at 1e-5 (float32, the same formulation; XLA's and
+PyTorch's CPU matmuls sum in different orders, about 1e-6 here); the whole
+model at rtol 1e-4, atol 2e-5 (the same rounding through up to five layers,
+softcapped logits of order 1); the port's own decode-vs-teacher-forcing check
+at tests/test_models.py's rtol 2e-2, atol 2e-3.
+"""
+import functools
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS, reduced as jreduced
+from repro.models import layers as jl
+from repro.models import model_zoo as jz
+from repro.models import recurrent as jr
+from repro.models.params import P as JP
+from repro.train import serve_step as jss
+from repro_torch import convert, kernels
+from repro_torch.configs import get_arch, reduced
+from repro_torch.models import layers as tl
+from repro_torch.models import model_zoo as tz
+from repro_torch.models.params import tree_map as ttree_map
+from repro_torch.models import recurrent as tr
+from repro_torch.train import serve_step as tss
+
+ARCH_NAMES = ["recurrentgemma-2b", "tinyllama-1.1b"]
+# recurrentgemma at a 4-token window and 5 layers: one (rglru, rglru,
+# localattn) cycle plus the two unrolled rglru layers of the full model's tail
+OVERRIDES = {"recurrentgemma-2b": dict(local_window=4, num_layers=5), "tinyllama-1.1b": {}}
+MOD_TOL = dict(rtol=1e-5, atol=1e-5)
+MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _model(name):
+    """(reference config, port config, reference params, port params)."""
+    jcfg = jreduced(ARCHS[name], **OVERRIDES[name])
+    tcfg = reduced(get_arch(name), **OVERRIDES[name])
+    rng = np.random.default_rng(0)
+
+    def draw(p):
+        if p.init in ("zeros", "ones"):
+            return np.full(p.shape, float(p.init == "ones"), np.float32)
+        return (p.scale * rng.normal(size=p.shape)).astype(np.float32)
+
+    tree = jax.tree_util.tree_map(draw, jz.model_spec(jcfg), is_leaf=lambda x: isinstance(x, JP))
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    return jcfg, tcfg, jp, convert.model_params_from_jax(tree, "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted(name, fn, mode):
+    """The reference's model call ``fn`` for arch ``name`` in ``mode``, jitted."""
+    jcfg = _model(name)[0]
+    ctx = jl.ApplyCtx(mode=mode)
+    if fn == "forward_train":
+        return jax.jit(lambda p, t: jz.forward_train(jcfg, p, {"tokens": t}, ctx=ctx)[0])
+    if fn == "prefill":
+        return jax.jit(lambda p, t, c: jz.prefill(jcfg, p, {"tokens": t}, c, ctx=ctx))
+    return jax.jit(lambda p, t, c: jz.decode_step(jcfg, p, t, c, ctx=ctx))
+
+
+def _tokens(cfg, b, t, seed=0):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, t)).astype(np.int32)
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+
+
+def _first_block(name, j):
+    """Pattern position ``j``'s parameters of cycle 0, in both packages."""
+    _, _, jp, tp = _model(name)
+    return (jax.tree_util.tree_map(lambda a: a[0], jp["cycles"][j]),
+            ttree_map(lambda a: a[0], tp["cycles"][j]))
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_reference(dtype):
+    x, scale = _x((2, 5, 64)), 1.0 + 0.1 * _x((64,), seed=1)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = jl.rmsnorm({"scale": jnp.asarray(scale)}, jnp.asarray(x, jdt), 1e-5)
+    got = tl.rmsnorm({"scale": torch.as_tensor(scale)}, torch.as_tensor(x).to(tdt), 1e-5)
+    assert got.dtype == tdt  # the activation dtype, math in float32
+    # bfloat16: one rounding of the same float32 value, within one ulp (2^-8)
+    _close(got, want, MOD_TOL if dtype == "float32" else dict(rtol=2**-8, atol=1e-6))
+
+
+def test_rope_matches_reference():
+    x = _x((2, 7, 3, 16))
+    pos = np.arange(5, 12)
+    want = jl.rope(jnp.asarray(x), jnp.asarray(pos), 10000.0)
+    _close(tl.rope(torch.as_tensor(x), torch.as_tensor(pos), 10000.0), want, MOD_TOL)
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)  # geglu and swiglu
+def test_mlp_matches_reference(name):
+    jcfg, tcfg, _, _ = _model(name)
+    jp, tp = _first_block(name, 0)
+    x = _x((2, 5, 64))
+    want = jl.mlp(jcfg, jp["ffn"], jnp.asarray(x))
+    _close(tl.mlp(tcfg, tp["ffn"], torch.as_tensor(x)), want, MOD_TOL)
+
+
+def _attn_case(name):
+    jcfg, tcfg, _, _ = _model(name)
+    j = 2 if name == "recurrentgemma-2b" else 0  # the attention position of the pattern
+    jp, tp = _first_block(name, j)
+    return jcfg, tcfg, jp["attn"], tp["attn"]
+
+
+@pytest.mark.parametrize("name,window", [("tinyllama-1.1b", 0), ("recurrentgemma-2b", 4)])
+@pytest.mark.parametrize("t", [3, 9])  # within and past the window
+def test_attention_prefill_and_decode_match_reference(name, window, t):
+    """Prefill t tokens, then decode 6 more, past the ring's wrap."""
+    jcfg, tcfg, jp, tp = _attn_case(name)
+    b, max_len = 2, 16
+    x = _x((b, t + 6, 64), seed=t)
+    jcache = jl.init_attention_cache(jcfg, b, max_len, jnp.float32, window=window)
+    tcache = tl.init_attention_cache(tcfg, b, max_len, torch.float32, "cpu", window=window)
+    want, jcache = jl.attention(jcfg, jp, jnp.asarray(x[:, :t]), ctx=jl.ApplyCtx(mode="prefill"),
+                                window=window, cache=jcache)
+    got, tcache = tl.attention(tcfg, tp, torch.as_tensor(x[:, :t]), ctx=tl.ApplyCtx(mode="prefill"),
+                               window=window, cache=tcache)
+    _close(got, want, MOD_TOL)
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key], MOD_TOL)
+    for i in range(t, t + 6):
+        length = np.int32(i)
+        want, jcache = jl.attention(
+            jcfg, jp, jnp.asarray(x[:, i : i + 1]), ctx=jl.ApplyCtx(mode="decode"), window=window,
+            positions=jnp.full((1,), length), length=jnp.asarray(length), cache=jcache)
+        got, tcache = tl.attention(
+            tcfg, tp, torch.as_tensor(x[:, i : i + 1]), ctx=tl.ApplyCtx(mode="decode"),
+            window=window, positions=torch.full((1,), i, dtype=torch.int32),
+            length=torch.tensor(i, dtype=torch.int32), cache=tcache)
+        _close(got, want, MOD_TOL)
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key], MOD_TOL)
+
+
+def test_attention_train_matches_reference_across_query_chunks():
+    """Two query chunks of 4 (the chunk rule of _full_attention) in train mode."""
+    jcfg, tcfg, jp, tp = _attn_case("recurrentgemma-2b")
+    x = _x((2, 8, 64), seed=5)
+    want, _ = jl.attention(jcfg, jp, jnp.asarray(x), ctx=jl.ApplyCtx(mode="train", q_chunk=4), window=4)
+    got, _ = tl.attention(tcfg, tp, torch.as_tensor(x), ctx=tl.ApplyCtx(mode="train", q_chunk=4), window=4)
+    _close(got, want, MOD_TOL)
+
+
+def test_rglru_block_prefill_and_decode_match_reference():
+    jcfg, tcfg, _, _ = _model("recurrentgemma-2b")
+    jp, tp = (p["mix"] for p in _first_block("recurrentgemma-2b", 0))
+    b, t = 2, 7
+    x = 0.5 * _x((b, t + 3, 64), seed=2)
+    jcache = jr.init_rglru_cache(jcfg, b)
+    tcache = tr.init_rglru_cache(tcfg, b, "cpu")
+    want, jcache = jr.rglru_block(jcfg, jp, jnp.asarray(x[:, :t]), ctx=jl.ApplyCtx(mode="prefill"),
+                                  cache=jcache)
+    got, tcache = tr.rglru_block(tcfg, tp, torch.as_tensor(x[:, :t]), ctx=tl.ApplyCtx(mode="prefill"),
+                                 cache=tcache)
+    _close(got, want, MOD_TOL)
+    for i in range(t, t + 3):
+        want, jcache = jr.rglru_block(jcfg, jp, jnp.asarray(x[:, i : i + 1]),
+                                      ctx=jl.ApplyCtx(mode="decode"), cache=jcache)
+        got, tcache = tr.rglru_block(tcfg, tp, torch.as_tensor(x[:, i : i + 1]),
+                                     ctx=tl.ApplyCtx(mode="decode"), cache=tcache)
+        _close(got, want, MOD_TOL)
+    for key in ("h", "conv"):
+        assert tcache[key].dtype == torch.float32
+        _close(tcache[key], jcache[key], MOD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the whole slice
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_prefill_and_decode_match_reference(name):
+    """Prefill 8 tokens (past recurrentgemma's 4-token window), then decode
+    4, against the reference's logits; also the train-mode forward."""
+    jcfg, tcfg, jp, tp = _model(name)
+    b, t, k = 2, 12, 8
+    toks = _tokens(jcfg, b, t)
+    want = _jitted(name, "forward_train", "train")(jp, jnp.asarray(toks))
+    got, _ = tz.forward_train(tcfg, tp, {"tokens": torch.as_tensor(toks)}, ctx=tl.ApplyCtx(mode="train"))
+    _close(got, want, MODEL_TOL)
+
+    jcache = jz.init_cache(jcfg, b, 32, jnp.float32)
+    tcache = tz.init_cache(tcfg, b, 32, torch.float32, device="cpu")
+    want, jcache = _jitted(name, "prefill", "prefill")(jp, jnp.asarray(toks[:, :k]), jcache)
+    got, tcache = tz.prefill(tcfg, tp, {"tokens": torch.as_tensor(toks[:, :k])}, tcache,
+                             ctx=tl.ApplyCtx(mode="prefill"))
+    _close(got, want, MODEL_TOL)
+    for j in range(k, t):
+        want, jcache = _jitted(name, "decode_step", "decode")(jp, jnp.asarray(toks[:, j : j + 1]), jcache)
+        got, tcache = tz.decode_step(tcfg, tp, torch.as_tensor(toks[:, j : j + 1]), tcache,
+                                     ctx=tl.ApplyCtx(mode="decode"))
+        _close(got, want, MODEL_TOL)
+    assert int(tcache["length"]) == int(jcache["length"]) == t
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_generate_matches_reference_tokens(name):
+    jcfg, tcfg, jp, tp = _model(name)
+    toks = _tokens(jcfg, 2, 6, seed=1)
+    want = jss.generate(jcfg, jp, {"tokens": jnp.asarray(toks)}, 16, 8,
+                        ctx_prefill=jl.ApplyCtx(mode="prefill"), ctx_decode=jl.ApplyCtx(mode="decode"))
+    got = tss.generate(tcfg, tp, {"tokens": torch.as_tensor(toks)}, 16, 8,
+                       ctx_prefill=tl.ApplyCtx(mode="prefill"), ctx_decode=tl.ApplyCtx(mode="decode"))
+    assert got.dtype == torch.int32 and got.shape == (2, 8)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_decode_matches_teacher_forcing(name):
+    """The port on its own: prefill(t[:k]) + teacher-forced decode steps
+    reproduce its full-sequence forward (tests/test_models.py's property),
+    here on the port's own initialisation."""
+    _, tcfg, _, _ = _model(name)
+    params = tz.init_model_params(tcfg, seed=3, device="cpu")
+    toks = torch.as_tensor(_tokens(tcfg, 2, 12, seed=2))
+    full, _ = tz.forward_train(tcfg, params, {"tokens": toks}, ctx=tl.ApplyCtx(mode="train"))
+    cache = tz.init_cache(tcfg, 2, 32, torch.float32, device="cpu")
+    lg, cache = tz.prefill(tcfg, params, {"tokens": toks[:, :8]}, cache, ctx=tl.ApplyCtx(mode="prefill"))
+    torch.testing.assert_close(lg, full[:, 7], rtol=2e-2, atol=2e-3)
+    for j in range(8, 11):
+        lg, cache = tz.decode_step(tcfg, params, toks[:, j : j + 1], cache, ctx=tl.ApplyCtx(mode="decode"))
+        torch.testing.assert_close(lg, full[:, j], rtol=2e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_full_width_param_count_matches_reference(name):
+    """The full-width spec, counted without allocating (2.89 B for recurrentgemma)."""
+    assert tz.param_count(get_arch(name)) == jz.param_count(ARCHS[name])
+    assert get_arch(name).param_count() == jz.param_count(ARCHS[name])
+
+
+def test_init_model_params_draws_each_leaf_at_its_scale():
+    cfg = reduced(get_arch("recurrentgemma-2b"), dtype="bfloat16")
+    params = tz.init_model_params(cfg, seed=0, device="cpu")
+    assert params["embed"].dtype == torch.bfloat16
+    assert float(params["embed"].float().std()) == pytest.approx(64**-0.5, rel=0.05)
+    mix = params["cycles"][0]["mix"]
+    assert mix["w_in"].shape == (1, 64, 64)  # the n_cycles axis leads
+    assert torch.all(mix["lam"] == 1) and torch.all(mix["conv_b"] == 0)
+    again = tz.init_model_params(cfg, seed=0, device="cpu")
+    assert torch.equal(again["embed"], params["embed"])
+
+
+def test_unported_arch_and_kind_raise():
+    with pytest.raises(KeyError, match="recurrentgemma-2b"):
+        get_arch("xlstm-1.3b")
+    from repro_torch.models import transformer
+
+    with pytest.raises(ValueError, match="not ported"):
+        transformer.block_spec(reduced(get_arch("tinyllama-1.1b")), "mlstm")
+
+
+def test_entry_points_without_a_device_raise_on_a_cpu_machine():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry points would use it")
+    cfg = reduced(get_arch("tinyllama-1.1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tz.init_model_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tz.init_cache(cfg, 1, 8)
+
+
+def test_serve_cli_runs_reduced_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "recurrentgemma-2b",
+         "--device", "cpu", "--prompt-len", "8", "--gen-len", "4"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "arch=recurrentgemma-2b-smoke batch=4 prompt=8" in proc.stdout
+    assert "generated token ids (seq 0):" in proc.stdout
+    refused = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--rounds", "2",
+                              "--device", "cpu"], capture_output=True, text=True, timeout=300)
+    assert refused.returncode != 0 and "ROADMAP item 9" in refused.stderr
+
+
+@pytest.mark.cuda
+def test_serving_on_card_goes_through_both_kernels():
+    """Reduced recurrentgemma on the card: prefill launches K3 once per RG-LRU
+    layer, each decode step K2 once per attention layer, and the logits match
+    the same model on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, tcfg, _, tp = _model("recurrentgemma-2b")
+    params = ttree_map(lambda a: a.cuda(), tp)
+    toks = torch.as_tensor(_tokens(tcfg, 2, 12))
+    cache = tz.init_cache(tcfg, 2, 32, torch.float32, device="cuda")
+    cpu_cache = tz.init_cache(tcfg, 2, 32, torch.float32, device="cpu")
+    kernels.reset_launch_counts()
+    got, cache = tz.prefill(tcfg, params, {"tokens": toks[:, :8].cuda()}, cache,
+                            ctx=tl.ApplyCtx(mode="prefill"))
+    want, cpu_cache = tz.prefill(tcfg, tp, {"tokens": toks[:, :8]}, cpu_cache, ctx=tl.ApplyCtx(mode="prefill"))
+    _close(got.cpu(), want, MODEL_TOL)
+    for j in range(8, 11):
+        got, cache = tz.decode_step(tcfg, params, toks[:, j : j + 1].cuda(), cache,
+                                    ctx=tl.ApplyCtx(mode="decode"))
+        want, cpu_cache = tz.decode_step(tcfg, tp, toks[:, j : j + 1], cpu_cache,
+                                         ctx=tl.ApplyCtx(mode="decode"))
+        _close(got.cpu(), want, MODEL_TOL)
+    counts = kernels.launch_counts()
+    assert counts["lru_scan"] == 4 and counts["decode_attention"] == 3

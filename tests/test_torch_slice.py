@@ -84,9 +84,13 @@ def test_port_cycle_rebalances_a_heterogeneous_fleet():
 def test_port_imports_no_jax_and_no_reference():
     code = (
         "import sys\n"
+        "sys.modules.update(jax=None, jaxlib=None, repro=None)  # any import of them raises\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels, repro_torch.sched\n"
         "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.core.gibbs\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "import repro_torch.models, repro_torch.configs, repro_torch.train\n"
+        "import repro_torch.launch, repro_torch.launch.serve\n"
+        "bad = [m for m, mod in sys.modules.items()\n"
+        "       if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
