@@ -10,20 +10,23 @@ result lines:
      TF32 off;
   2. build: every CUDA kernel of the port (K1 posterior grid, K2 decode
      attention, K3 linear-recurrence scan), from ``src/repro_torch/kernels/csrc``,
-     into ``build/kernels`` (one ``nvcc`` per source, all started together);
+     into ``build/kernels`` (one ``nvcc`` per source, all started together),
+     with ptxas's registers and spills of every entry function;
   3. each kernel against its plain PyTorch version on the card, at odd
      shapes, at the reference kernel tests' shapes and at the shapes the main
-     paths give it;
+     paths give it: K1 in both its modes (mirrored and general), K2 at every
+     compiled (G, D) and with a sequence of length 0;
   4. each kernel's device time at its main path's shape (median of
      CUDA-event-timed replays of a CUDA graph of repeated calls), its plain
-     version's time, its bound, and for K2 the time of
+     version's time, its bound, for K1 the general mode's time and the
+     special-function floor, and for K2 the time of
      ``scaled_dot_product_attention`` on the same inputs;
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
      per objective;
   6. the fleet cycle, slice 1's main path: K = 4096 heterogeneous workers, 3
      cycles of observe (N = 256) -> propose -> quantize (8 K microbatches),
      observe and propose under ``torch.cuda.set_sync_debug_mode("error")``;
-     K1 launches (3 x 20), finite fractions summing to 1, counts summing to
+     K1 launches (3 x 20, mirrored mode), finite fractions summing to 1, counts summing to
      the total, and the share of the oracle's gain over the uniform split that
      the learned split recovers (>= 80 %);
   7. serving, slice 2's main path: recurrentgemma-2b at full width (bf16
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -126,16 +130,24 @@ def phase_environment():
 
 
 def phase_build():
+    """Build every kernel; print what ptxas says of each entry function
+    (its name, registers, spills), as it says it."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
     build.build_all()
     say(f"[build] {sorted(build.launch_counts())} built in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR.relative_to(ROOT)}")
+    for name in sorted(build.launch_counts()):
+        for line in build.ptxas_report(name).splitlines():
+            if re.search(r"Compiling entry function|spill stores|Used \d+ registers", line):
+                say(f"[build] {name}: {line.strip()}")
 
 
 def phase_k1_parity():
-    """K1 against its plain version at odd and main-path shapes."""
+    """K1 in both modes against its plain version in the same form, at odd and
+    main-path shapes; the grid is a symmetric linspace, as the mirrored mode
+    needs."""
     import torch
     from repro_torch.kernels.posterior_grid import posterior_grid_fleet, posterior_grid_plain
 
@@ -147,16 +159,16 @@ def phase_k1_parity():
         (K_FLEET, GRID, N_OBS, False, False),  # the fleet cycle's observe
     ]
     worst = 0.0
-    for i, (k, g, n, zc, dead) in enumerate(shapes):
-        args = fleet_case(k, g, n, seed=i, device="cuda", zero_cols=zc, dead_worker=dead)
-        got = posterior_grid_fleet(*args)
-        want = posterior_grid_plain(*args)
+    for i, ((k, g, n, zc, dead), sym) in enumerate(itertools.product(shapes, (True, False))):
+        args = fleet_case(k, g, n, seed=i // 2, device="cuda", zero_cols=zc, dead_worker=dead)
+        got = posterior_grid_fleet(*args, symmetric_grid=sym)
+        want = posterior_grid_plain(*args, symmetric_grid=sym)
         torch.cuda.synchronize()
         err = assert_logp_close(got, want)
         worst = max(worst, err)
-        say(f"[k1-parity] K={k} G={g} N={n} zero_cols={zc} dead_worker={dead}: "
-            f"max|err| {err:.3e} within rtol {RTOL:g} * (1 + max|logp| = "
-            f"{1 + float(want.abs().max()):.3e})")
+        say(f"[k1-parity] {'mirrored' if sym else 'general '} K={k} G={g} N={n} "
+            f"zero_cols={zc} dead_worker={dead}: max|err| {err:.3e} within rtol {RTOL:g} * "
+            f"(1 + max|logp| = {1 + float(want.abs().max()):.3e})")
     return worst
 
 
@@ -202,15 +214,25 @@ def scan_case(b, t, r, seed, dtype):
 
 def phase_k2_parity():
     """K2 against its plain version: tests/test_kernels.py's shapes in both
-    types, the empty tail, and the serving path's shape with lengths 1 and S."""
+    types, the empty tail, a sequence of length 0, one case for each compiled
+    (G, D), and the serving path's shape with lengths 1 and S."""
     import torch
-    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.decode_attention import (
+        INSTANTIATED,
+        decode_attention,
+        decode_attention_plain,
+    )
 
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [((b, h, kvh, d, s), dt, dt, None, 2e-5 if dt == f32 else 2e-2)
              for (b, h, kvh, d, s) in [(2, 8, 2, 64, 300), (1, 4, 4, 32, 128), (3, 9, 3, 16, 1000)]
              for dt in (f32, bf16)]
     cases.append(((2, 4, 1, 32, 2048), f32, f32, [5, 17], 1e-5))  # empty tail
+    cases.append(((3, 8, 2, 64, 500), f32, f32, [0, 130, 500], 2e-5))  # an empty cache
+    for j, (g, d) in enumerate(sorted(INSTANTIATED)):  # every instantiation, types in turn
+        q_dt, kv_dt = [(f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)][j % 4]
+        cases.append(((2, 2 * g, 2, d, 300), q_dt, kv_dt, [0, 300] if j % 2 else [77, 1],
+                      2e-5 if q_dt == kv_dt == f32 else 2e-2))
     s = K2_PATH[-1]
     cases.append((K2_PATH, bf16, f32, [1, s, 1000, s - 1], 2e-2))  # the serving path
     cases.append((K2_PATH, f32, f32, [1, s, 1000, s - 1], 2e-5))  # its teacher-forced check
@@ -293,22 +315,44 @@ def bound(ops: float, nbytes: float, peak_ops: float):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    return float(out[0]) * 1e6
+
+
 def phase_k1_timing():
+    """K1 at the fleet cycle's observe shape: the mirrored mode, which the
+    Gibbs sweep runs, is the kernel's time; the general mode's is printed
+    first, on a line of its own."""
+    import torch
     from repro_torch.kernels.posterior_grid import posterior_grid_fleet, posterior_grid_plain
 
     k, g, n = K_FLEET, GRID, N_OBS
     args = fleet_case(k, g, n, seed=7, device="cuda")
-    ms = time_cuda(lambda: posterior_grid_fleet(*args), runs=30)
-    plain_ms = time_cuda(lambda: posterior_grid_plain(*args), runs=5, reps=3)
-    # ~10 float32 operations per (k, g, n) cell (exp and reciprocal counted
-    # as one each, a fused multiply-add as two); bytes: t, f, mask, the
-    # per-worker scalars and the grid read once, the (K, 2, G) output written.
-    ops = 10.0 * k * g * n
+    general_ms = time_cuda(lambda: posterior_grid_fleet(*args), runs=30)
+    ms = time_cuda(lambda: posterior_grid_fleet(*args, symmetric_grid=True), runs=30)
+    plain_ms = time_cuda(lambda: posterior_grid_plain(*args, symmetric_grid=True), runs=5, reps=3)
+    # Float32 operations per (k, g, n) cell of the mirrored mode: g * log2 f,
+    # the exp2, pg * pg and three fused multiply-adds (two each), 9 in all.
+    # The general mode adds a reciprocal: 10.
+    # Bytes: t, f, mask, the per-worker scalars and the grid read once, the
+    # (K, 2, G) output written.
+    ops, general_ops = 9.0 * k * g * n, 10.0 * k * g * n
     nbytes = 4.0 * (3 * k * n + 8 * k + g + 2 * k * g)
     bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
-    say(f"[k1-time] K={k} G={g} N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes); "
-        f"no single library call computes this function")
+    general_bound_ms, general_bound_by = bound(general_ops, nbytes, PEAK_F32_FLOPS)
+    # One exp2 per cell on the special-function units: 16 a clock on each SM.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = max_sm_clock_hz()
+    sfu_ms = k * g * n / (sms * 16 * clock) * 1e3
+    say(f"[k1-time] K={k} G={g} N={n}: general mode {general_ms:.4f} ms, bound "
+        f"{general_bound_ms:.4f} ms by {general_bound_by} ({general_ops:.3e} ops)")
+    say(f"[k1-time] K={k} G={g} N={n}: mirrored mode {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes), "
+        f"special-function floor {sfu_ms:.4f} ms ({k * g * n:.3e} exp2 on {sms} SMs x 16 "
+        f"at {clock / 1e9:.3f} GHz); no single library call computes this function")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 

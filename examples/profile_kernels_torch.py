@@ -3,10 +3,12 @@
 
     python3 examples/profile_kernels_torch.py
 
-K2 (decode attention, recurrentgemma-2b's decode shape: B 4, H 10, KVH 1,
-D 256, S 2048, bf16 q, float32 cache) and K3 (the linear-recurrence scan,
-its prefill shape: B 4, T 4096, R 2560, float32), with K2's plain version
-and ``scaled_dot_product_attention`` beside it, on the same inputs every
+K1 (the fleet posterior grid at the fleet cycle's shape, K 4096, G 256,
+N 256, in its mirrored and general modes), K2 (decode attention,
+recurrentgemma-2b's decode shape: B 4, H 10, KVH 1, D 256, S 2048, bf16 q,
+float32 cache) and K3 (the linear-recurrence scan, its prefill shape: B 4,
+T 4096, R 2560, float32), with K2's plain version and
+``scaled_dot_product_attention`` beside it, on the same inputs every
 call (so K2's 16.8 MB stay in the 50 MB L2).  For each: the time of one
 call as CUDA events see it around a single call (host launch overhead
 included), around 20 calls back to back, and around a CUDA graph replay of
@@ -34,6 +36,7 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain  # noqa: E402
 from repro_torch.kernels.lru_scan import lru_scan, lru_scan_plain  # noqa: E402
+from repro_torch.kernels.posterior_grid import posterior_grid_fleet  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.models.layers import ApplyCtx  # noqa: E402
 
@@ -119,7 +122,17 @@ def main() -> None:
     q4, k4, v4 = q.float()[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     mask = (torch.arange(s, device="cuda")[None, :] < length[:, None])[:, None, None, :]
     a, x, h0 = torch.sigmoid(rn(4, 4096, 2560)), rn(4, 4096, 2560), rn(4, 2560)
+    kf, g, n = 4096, 256, 256
+    f = 0.05 + 0.9 * torch.rand((kf, n), generator=gen, device="cuda")
+    lin = lambda lo, hi: torch.linspace(lo, hi, kf, device="cuda")
+    k1_args = (torch.linspace(1e-4, 1 - 1e-4, g, device="cuda"),
+               f**0.9 * lin(5.0, 40.0)[:, None] + f**0.7 * 2.0 * rn(kf, n), f,
+               torch.ones((kf, n), device="cuda"), lin(5.0, 40.0), lin(0.1, 0.5),
+               lin(0.6, 0.95), lin(0.5, 0.9), lin(1.5, 4.0), lin(2.0, 3.0), lin(2.0, 5.0),
+               lin(1.5, 2.5))
     fns = {
+        "K1 posterior_grid mirrored": lambda: posterior_grid_fleet(*k1_args, symmetric_grid=True),
+        "K1 posterior_grid general": lambda: posterior_grid_fleet(*k1_args),
         "K2 decode_attention": lambda: decode_attention(q, k, v, length),
         "K2 plain version": lambda: decode_attention_plain(q, k, v, length),
         "K2 SDPA": lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, enable_gqa=True),
@@ -130,7 +143,7 @@ def main() -> None:
         print(f"{name}: per-call events {events(fn, 1):.4f} ms, {REPS} back to back "
               f"{events(fn, REPS):.4f} ms, graph replay {graph_replay(fn):.4f} ms per call",
               flush=True)
-    for name in ("K2 decode_attention", "K3 lru_scan"):
+    for name in ("K1 posterior_grid mirrored", "K2 decode_attention", "K3 lru_scan"):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
                 fns[name]()

@@ -123,7 +123,8 @@ def gibbs_batch(
 
         # -- (alpha, beta) block: grid posterior (K1) -> Beta fit -> sample.
         a_post, b_post = update_alpha_beta_params(
-            grid, t, f, mu, lam, st.alpha, st.beta, st.alpha_prior, st.beta_prior, mask
+            grid, t, f, mu, lam, st.alpha, st.beta, st.alpha_prior, st.beta_prior, mask,
+            symmetric_grid=True,  # exponent_grid is a symmetric linspace
         )
         alpha = sample_beta(generator, a_post.a, a_post.b)
         beta = sample_beta(generator, b_post.a, b_post.b)

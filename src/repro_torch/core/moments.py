@@ -106,14 +106,19 @@ def update_alpha_beta_params(
     alpha_prior: BetaParams,
     beta_prior: BetaParams,
     mask: Optional[Tensor] = None,
+    *,
+    symmetric_grid: bool = False,
 ) -> Tuple[BetaParams, BetaParams]:
     """Posterior Beta approximations for alpha and beta (one Gibbs sub-step).
 
     ``t``/``f``/``mask`` may carry leading fleet axes, with the scalars and
     prior leaves shaped to match; the whole fleet is one K1 launch.
+    ``symmetric_grid`` may be set when ``grid`` is midpoint-symmetric
+    (``exponent_grid`` is); see ``log_posterior_grid``.
     """
     logp = _kops.posterior_grid_fleet(
-        grid, t, f, mu, lam, alpha, beta, alpha_prior, beta_prior, mask
+        grid, t, f, mu, lam, alpha, beta, alpha_prior, beta_prior, mask,
+        symmetric_grid=symmetric_grid,
     )
     ea, va = moments_from_log_density(grid, logp[..., 0, :])
     eb, vb = moments_from_log_density(grid, logp[..., 1, :])

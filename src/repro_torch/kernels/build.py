@@ -10,6 +10,9 @@ a module is imported.
 Every kernel counts its launches (``CudaKernel.launches``), so a run can show
 that its main path went through the kernel: ``launch_counts`` and
 ``reset_launch_counts`` read and clear the counts of all of them.
+
+``nvcc`` runs with ``-Xptxas -v``; what ptxas says of each entry function
+(registers, spills) is kept beside the library and read by ``ptxas_report``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _REGISTRY: Dict[str, "CudaKernel"] = {}
@@ -60,11 +63,24 @@ def build_library(source: Path) -> Path:
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
+        _report_path(lib).write_text(proc.stderr)
         os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return lib
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said of each entry function of a built kernel's source."""
+    lib = _REGISTRY[name].library
+    if lib is None:
+        raise RuntimeError(f"{name} is not built")
+    return _report_path(lib).read_text()
 
 
 class CudaKernel:
@@ -75,12 +91,14 @@ class CudaKernel:
         self.source = CSRC / source
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.library = None
         self._fn = None
         _REGISTRY[name] = self
 
     def build(self):
         if self._fn is None:
-            lib = ctypes.CDLL(str(build_library(self.source)))
+            self.library = build_library(self.source)
+            lib = ctypes.CDLL(str(self.library))
             fn = getattr(lib, self.name)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

@@ -28,7 +28,10 @@ _KERNEL = CudaKernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
 CHUNK = 64  # cache rows per block of the kernel's first pass (kChunk)
-MAX_GROUP, MAX_HEAD_DIM = 32, 256  # the kernel's kMaxG and kMaxD
+# The (G, D) = (query heads per kv head, head dimension) pairs the kernel is
+# compiled for: recurrentgemma-2b, tinyllama-1.1b, the reduced configurations
+# of both, and the parity shapes of tests/test_kernels.py.
+INSTANTIATED = frozenset({(10, 256), (8, 64), (4, 16), (4, 64), (1, 32), (3, 16), (4, 32)})
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -42,31 +45,39 @@ def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, length: Optional[Ten
     s, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, kvh, h // kvh, d).float()
     logits = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * d**-0.5
-    if length is not None:
-        valid = torch.arange(s, device=q.device)[None, :] < length[:, None]  # (B, S)
-        logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
-    w = torch.softmax(logits, dim=-1)
+    if length is None:
+        w = torch.softmax(logits, dim=-1)
+    else:
+        invalid = (torch.arange(s, device=q.device)[None, :] >= length[:, None])[:, None, None, :]
+        w = torch.softmax(logits.masked_fill(invalid, float("-inf")), dim=-1)
+        # An empty row set gives zeros, as the kernels' acc / max(l, 1e-30):
+        # its softmax over all -inf is NaN, and every one of its rows is masked.
+        w = w.masked_fill(invalid, 0.0)
     out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
     return out.reshape(b, h, d).to(q.dtype)
 
 
 def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, length: Tensor) -> Tensor:
     """Launch K2 on the current stream: q (B, H, D) and k, v (B, S, KVH, D),
-    each float32 or bfloat16 (k and v alike), length (B,) on one CUDA device.
-    Returns (B, H, D) in q's dtype."""
+    each float32 or bfloat16 (k and v alike), length (B,) on one CUDA device,
+    with (H / KVH, D) in ``INSTANTIATED``.  Returns (B, H, D) in q's dtype."""
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    if not all(x.is_cuda and x.device == q.device for x in (k, v, length)):
+    if k.shape != (b, s, kvh, d) or v.shape != k.shape or length.shape != (b,) or h % kvh:
+        raise ValueError(
+            f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+            f"length {tuple(length.shape)}"
+        )
+    if (h // kvh, d) not in INSTANTIATED:
+        raise ValueError(f"decode_attention_cuda: no instantiation for (G, D) = ({h // kvh}, {d}); "
+                         f"compiled for {sorted(INSTANTIATED)}")
+    if not all(x.is_cuda and x.device == q.device for x in (q, k, v, length)):
         raise ValueError("decode_attention_cuda takes tensors on one CUDA device")
     if q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype:
         raise ValueError(f"dtypes q {q.dtype}, k {k.dtype}, v {v.dtype}: float32 or bfloat16, k as v")
-    if (k.shape != (b, s, kvh, d) or v.shape != k.shape or length.shape != (b,)
-            or h % kvh or h // kvh > MAX_GROUP or d > MAX_HEAD_DIM):
-        raise ValueError(
-            f"shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
-            f"length {tuple(length.shape)} (G <= {MAX_GROUP}, D <= {MAX_HEAD_DIM})"
-        )
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if k.data_ptr() % 16 or v.data_ptr() % 16:  # the kernel copies rows in 16-byte units
+        raise ValueError("decode_attention_cuda: k and v must start 16-byte aligned")
     length = length.to(torch.int32).contiguous()
     n_chunks = -(-s // CHUNK)
     g = h // kvh

@@ -26,6 +26,8 @@ def posterior_grid_fleet(
     alpha_prior,
     beta_prior,
     mask: Optional[Tensor] = None,
+    *,
+    symmetric_grid: bool = False,
 ) -> Tensor:
     """Both exponent posteriors for a whole fleet in one kernel launch.
 
@@ -34,6 +36,8 @@ def posterior_grid_fleet(
     (..., 2, G).  Stacked leading axes — a workflow DAG's (S, K, N) block,
     or none for a single unit — are folded into one fleet axis before the
     launch and unfolded after it, so the whole stack still costs ONE launch.
+    ``symmetric_grid=True`` (only for a midpoint-symmetric grid, as
+    ``exponent_grid``) takes K1's mirrored mode.
     """
     if mask is None:
         mask = torch.ones_like(t)
@@ -48,6 +52,7 @@ def posterior_grid_fleet(
         flat_k(mu), flat_k(lam), flat_k(alpha), flat_k(beta),
         flat_k(alpha_prior.a), flat_k(alpha_prior.b),
         flat_k(beta_prior.a), flat_k(beta_prior.b),
+        symmetric_grid=symmetric_grid,
     )
     return out.reshape(*lead, *out.shape[1:])
 

@@ -33,7 +33,7 @@ from .build import CudaKernel
 _KERNEL = CudaKernel(
     "posterior_grid_fleet",
     "posterior_grid.cu",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 )
 
 
@@ -100,13 +100,17 @@ def posterior_grid_plain(
 
 
 def posterior_grid_cuda(
-    grid: Tensor, t: Tensor, f: Tensor, mask: Tensor, params: Tensor
+    grid: Tensor, t: Tensor, f: Tensor, mask: Tensor, params: Tensor,
+    *, symmetric_grid: bool = False,
 ) -> Tensor:
     """Launch K1 on the current stream.
 
     grid (G,); t/f/mask (K, N); params (K, 8) = (mu, lam, alpha, beta,
     alpha_prior.a, alpha_prior.b, beta_prior.a, beta_prior.b).  All float32
-    and on one CUDA device.  Returns (K, 2, G).
+    and on one CUDA device.  Returns (K, 2, G).  ``symmetric_grid=True``
+    launches the mirrored mode, which reads the beta mode's f^{-2g} off the
+    alpha mode's pg^2 (see ``posterior_grid_plain``); only for a grid
+    symmetric about its midpoint.
     """
     k, n = t.shape
     g_n = grid.shape[0]
@@ -125,7 +129,7 @@ def posterior_grid_cuda(
     with torch.cuda.device(t.device):
         _KERNEL.launch(
             grid.data_ptr(), t.data_ptr(), f.data_ptr(), mask.data_ptr(),
-            params.data_ptr(), out.data_ptr(), k, n, g_n, stream,
+            params.data_ptr(), out.data_ptr(), k, n, g_n, int(symmetric_grid), stream,
         )
     return out
 
@@ -143,16 +147,21 @@ def posterior_grid_fleet(
     alpha_prior_b: Tensor,
     beta_prior_a: Tensor,
     beta_prior_b: Tensor,
+    *,
+    symmetric_grid: bool = False,
 ) -> Tensor:
     """Both exponent log-posteriors of a K-worker fleet: (K, N) -> (K, 2, G).
 
-    Same signature as ``posterior_grid_fleet_pallas``.  CUDA tensors run the
-    kernel; CPU tensors run ``posterior_grid_plain``.
+    Same signature as ``posterior_grid_fleet_pallas``, plus the reference's
+    ``symmetric_grid`` (``moments.log_posterior_grid``), which the Pallas
+    route ignored.  CUDA tensors run the kernel in the mode it picks; CPU
+    tensors run ``posterior_grid_plain`` in the same form.
     """
     if t.device.type == "cpu":
         return posterior_grid_plain(
             grid, t, f, mask, mu, lam, alpha, beta,
             alpha_prior_a, alpha_prior_b, beta_prior_a, beta_prior_b,
+            symmetric_grid=symmetric_grid,
         )
     if not t.is_cuda:
         raise ValueError(f"posterior_grid_fleet: no kernel for device {t.device}")
@@ -166,4 +175,5 @@ def posterior_grid_fleet(
         dim=1,
     )
     as_f32 = lambda x: x.to(torch.float32)
-    return posterior_grid_cuda(as_f32(grid), as_f32(t), as_f32(f), as_f32(mask), params)
+    return posterior_grid_cuda(as_f32(grid), as_f32(t), as_f32(f), as_f32(mask), params,
+                               symmetric_grid=symmetric_grid)

@@ -28,8 +28,8 @@ def _synth(seed, n, mu, sigma, alpha, beta):
 
 def test_sweep_conditionals_match_reference():
     """One sweep's conditional posteriors at a fixed (mu, lam, alpha, beta,
-    priors): the reference runs the symmetric-grid form (as its ``_advance``
-    does), the port the general form (as K1 does)."""
+    priors), both in the symmetric-grid form that each package's sweep asks
+    for (K1's mirrored mode on the card)."""
     c = fleet_case(4, 64, seed=3)
     J, T = jnp.asarray, torch.as_tensor
     ng = [np.linspace(a, b, 4).astype(np.float32)
@@ -52,13 +52,38 @@ def test_sweep_conditionals_match_reference():
         B(*map(X, c["ap"])), B(*map(X, c["bp"])), X(c["mask"]),
     )
     want = jm.update_alpha_beta_params(grid, *args(J, jm.BetaParams), symmetric_grid=True)
-    got = tm.update_alpha_beta_params(T(np.asarray(grid)), *args(T, tm.BetaParams))
+    got = tm.update_alpha_beta_params(T(np.asarray(grid)), *args(T, tm.BetaParams),
+                                      symmetric_grid=True)
     beta_moments = lambda a, b: (a / (a + b), a * b / ((a + b) ** 2 * (a + b + 1.0)))
     for gp, wp in zip(got, want):  # held through the fitted moments (see test_torch_moments)
         g_mean, g_var = beta_moments(*(x.double().numpy() for x in gp))
         w_mean, w_var = beta_moments(*(np.asarray(x, np.float64) for x in wp))
         np.testing.assert_allclose(g_mean, w_mean, rtol=1e-5)
         np.testing.assert_allclose(g_var, w_var, atol=1e-6)
+
+
+def test_sweep_reaches_k1_in_its_mirrored_mode(monkeypatch):
+    """Every sweep of the port's Gibbs batch sends its grid posterior to K1's
+    wrapper with symmetric_grid=True, as the reference's ``_advance`` asks for
+    it (gibbs.py:139-143), on the symmetric exponent grid."""
+    from repro_torch.kernels import ops as kops
+
+    calls = []
+    real = kops.posterior_grid_fleet
+
+    def spy(grid, *args, **kw):
+        calls.append(kw.get("symmetric_grid"))
+        sym = grid + torch.flip(grid, dims=(0,))
+        torch.testing.assert_close(sym, torch.full_like(sym, float(sym[0])), rtol=0, atol=1e-6)
+        return real(grid, *args, **kw)
+
+    monkeypatch.setattr(kops, "posterior_grid_fleet", spy)
+    f, t = _synth(2, 32, 20.0, 1.0, 0.9, 0.8)
+    gen = torch.Generator().manual_seed(0)
+    state = tg.init_state(gen)
+    tg.gibbs_batch(state, torch.as_tensor(t), torch.as_tensor(f), generator=gen,
+                   n_iters=3, grid_size=64)
+    assert calls == [True] * 3
 
 
 def test_discount_state_matches_reference():

@@ -13,13 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import moments as jm
 from repro.kernels import ops as jops
 from repro.kernels.posterior_grid import posterior_grid_fleet_pallas, posterior_grid_pallas
 from repro_torch import kernels
 from repro_torch.core.moments import BetaParams
 from repro_torch.kernels import ops
 from repro_torch.kernels.posterior_grid import posterior_grid_cuda, posterior_grid_plain
-from test_torch_moments import CASES, assert_logp_close, fleet_case
+from test_torch_moments import CASES, _jax_grid, assert_logp_close, fleet_case
 
 
 def _pallas(grid, c, **kw):
@@ -31,12 +32,12 @@ def _pallas(grid, c, **kw):
     )
 
 
-def _ops(grid, c):
+def _ops(grid, c, **kw):
     T = torch.as_tensor
     return ops.posterior_grid_fleet(
         T(grid), T(c["t"]), T(c["f"]), T(c["mu"]), T(c["lam"]), T(c["alpha"]),
         T(c["beta"]), BetaParams(*map(T, c["ap"])), BetaParams(*map(T, c["bp"])),
-        T(c["mask"]),
+        T(c["mask"]), **kw,
     )
 
 
@@ -50,6 +51,22 @@ def test_posterior_grid_fleet_matches_pallas(k, g, n, zero_cols):
     assert got.shape == (k, 2, g)
     assert_logp_close(got, _pallas(grid, c, block_g=64, block_n=256))
     # CPU tensors take the plain version: the kernel's count does not move
+    assert kernels.launch_counts() == before
+
+
+@pytest.mark.parametrize("zero_cols", [False, True])
+@pytest.mark.parametrize("k,g,n", CASES)
+def test_posterior_grid_fleet_symmetric_matches_reference_and_pallas(k, g, n, zero_cols):
+    """The mirrored mode (symmetric_grid=True, which the Gibbs sweep takes) on
+    the exponent grid matches the reference's symmetric-grid oracle and its
+    Pallas kernel, which computes the general form."""
+    c = fleet_case(k, n, seed=g, zero_cols=zero_cols)
+    grid = np.asarray(jm.exponent_grid(g))
+    before = kernels.launch_counts()
+    got = _ops(grid, c, symmetric_grid=True)
+    assert got.shape == (k, 2, g)
+    assert_logp_close(got, _jax_grid(grid, c, symmetric_grid=True))
+    assert_logp_close(got, _pallas(grid, c, block_g=64, block_n=256))
     assert kernels.launch_counts() == before
 
 
@@ -117,21 +134,27 @@ def test_cuda_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("symmetric_grid", [False, True])
+def test_cuda_kernel_matches_plain_on_card(symmetric_grid):
+    """Both kernel modes against the plain version of the same form; the
+    mirrored one on the exponent grid, the general one on the grid of
+    tests/test_kernels.py, and a G > 256 grid takes several passes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for k, g, n in CASES:
+    for k, g, n in CASES + [(2, 64, 3000)]:  # N above one staged tile of 2048
         c = fleet_case(k, n, zero_cols=True)
         c["mask"][0, : n // 2] = 0.0
         dev = lambda x: torch.as_tensor(x, device="cuda")
-        grid = np.linspace(1e-4, 1 - 1e-4, g, dtype=np.float32)
+        grid = (np.asarray(jm.exponent_grid(g)) if symmetric_grid
+                else np.linspace(1e-4, 1 - 1e-4, g, dtype=np.float32))
         args = (dev(grid), dev(c["t"]), dev(c["f"]), dev(c["mask"]), dev(c["mu"]),
                 dev(c["lam"]), dev(c["alpha"]), dev(c["beta"]),
                 *map(dev, c["ap"]), *map(dev, c["bp"]))
         before = kernels.launch_counts()["posterior_grid_fleet"]
-        got = kernels.posterior_grid_fleet(*args)
+        got = kernels.posterior_grid_fleet(*args, symmetric_grid=symmetric_grid)
         torch.cuda.synchronize()
         assert kernels.launch_counts()["posterior_grid_fleet"] == before + 1
-        assert_logp_close(got.cpu(), posterior_grid_plain(*args).cpu())
+        want = posterior_grid_plain(*args, symmetric_grid=symmetric_grid)
+        assert_logp_close(got.cpu(), want.cpu())

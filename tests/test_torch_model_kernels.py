@@ -6,20 +6,26 @@ On a CPU tensor each wrapper runs its plain PyTorch version and no launch is
 counted; on a CUDA tensor it launches the hand-written kernel or raises.  The
 tests that need the card compare each kernel with its plain version there
 and skip elsewhere.  Tolerances are tests/test_kernels.py's: 2e-5 (float32)
-or 2e-2 (bfloat16) for K2, 1e-5 or 4e-2 for K3, 1e-5 for the empty tail and
-the continuation.
+or 2e-2 (bfloat16) for K2, 1e-5 or 4e-2 for K3, 1e-5 for the empty tail, the
+empty cache and the continuation.  K2 is compiled for fixed (G, D) pairs
+(``INSTANTIATED``); the wrapper refuses any other before launching.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.decode_attention import decode_attention_pallas
 from repro.kernels.lru_scan import lru_scan_pallas
 from repro_torch import kernels
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_cuda, decode_attention_plain
+from repro_torch.kernels.decode_attention import (
+    INSTANTIATED,
+    decode_attention_cuda,
+    decode_attention_plain,
+)
 from repro_torch.kernels.lru_scan import lru_scan_cuda, lru_scan_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -74,6 +80,22 @@ def test_decode_attention_empty_tail_matches_pallas():
     _close(ops.decode_attention(*map(torch.as_tensor, (q, k, v, length))), want, 1e-5)
 
 
+@pytest.mark.parametrize("lengths", [[0, 5], [0, 0], [16, 0]])
+def test_decode_attention_empty_cache_matches_reference(lengths):
+    """A sequence of length 0 gives zeros, as the JAX package's
+    ``ops.decode_attention`` (interpret-mode Pallas, acc / max(l, 1e-30));
+    every other sequence's result is unchanged."""
+    q, k, v, _ = _decode_inputs(2, 4, 2, 32, 16, seed=5)
+    length = np.asarray(lengths, np.int32)
+    want = jops.decode_attention(*map(jnp.asarray, (q, k, v, length)))
+    got = ops.decode_attention(*map(torch.as_tensor, (q, k, v, length)))
+    assert torch.isfinite(got).all()
+    _close(got, want, 1e-5)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not got[i].any()
+
+
 def test_decode_attention_default_length_is_the_whole_cache():
     q, k, v, _ = _decode_inputs(2, 6, 2, 16, 40, seed=3)
     want = ref.decode_attention_ref(*map(jnp.asarray, (q, k, v)))
@@ -112,12 +134,44 @@ def test_lru_scan_default_h0_is_zero():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernel paths never fall back: handed CPU tensors, they raise."""
-    q, k, v, length = map(torch.as_tensor, _decode_inputs(1, 2, 1, 16, 8, seed=1))
-    with pytest.raises(ValueError):
+    q, k, v, length = map(torch.as_tensor, _decode_inputs(1, 4, 1, 16, 8, seed=1))
+    with pytest.raises(ValueError, match="one CUDA device"):
         decode_attention_cuda(q, k, v, length)
     a, x, h0 = map(torch.as_tensor, _scan_inputs(1, 4, 8, seed=1))
     with pytest.raises(ValueError):
         lru_scan_cuda(a, x, h0)
+
+
+@pytest.mark.parametrize("b,h,kvh,d,s", [(1, 5, 1, 48, 8), (2, 6, 2, 256, 8), (1, 10, 1, 128, 8)])
+def test_decode_attention_cuda_refuses_uninstantiated_group_and_head_dim(b, h, kvh, d, s):
+    """K2 is compiled for fixed (G, D) pairs; any other is refused by the
+    wrapper's shape check, which comes before the device check and any launch."""
+    assert (h // kvh, d) not in INSTANTIATED
+    q, k, v, length = map(torch.as_tensor, _decode_inputs(b, h, kvh, d, s, seed=2))
+    before = kernels.launch_counts()
+    with pytest.raises(ValueError, match="no instantiation"):
+        decode_attention_cuda(q, k, v, length)
+    assert kernels.launch_counts() == before
+
+
+def test_every_parity_shape_and_config_is_instantiated():
+    """The (G, D) pairs of tests/test_kernels.py's shapes (the cases, the
+    empty tail) and of every ported configuration (full and reduced) have a
+    kernel instantiation, and the wrapper's list is the CUDA source's."""
+    import re
+
+    from repro_torch.configs import ARCHS, get_arch, reduced
+    from repro_torch.kernels.build import CSRC
+
+    shapes = DECODE_CASES + [(2, 4, 1, 32, 2048)]
+    pairs = {(h // kvh, d) for _, h, kvh, d, _ in shapes}
+    for name in ARCHS:
+        for cfg in (get_arch(name), reduced(get_arch(name))):
+            pairs.add((cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim))
+    assert pairs <= INSTANTIATED, pairs - INSTANTIATED
+    source = (CSRC / "decode_attention.cu").read_text()
+    compiled = {(int(g), int(d)) for g, d in re.findall(r"^\s*DECODE_CASE\((\d+), (\d+)\)", source, re.M)}
+    assert compiled == INSTANTIATED
 
 
 def _needs_card():
@@ -142,6 +196,28 @@ def test_decode_attention_kernel_matches_plain_on_card(dtype):
         assert kernels.launch_counts()["decode_attention"] == before + 1
         _close(got.cpu(), decode_attention_plain(q, k, v, length).cpu(),
                2e-5 if dtype == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
+                                              ("bfloat16", "float32"), ("float32", "bfloat16")])
+@pytest.mark.parametrize("g,d", sorted(INSTANTIATED))
+def test_decode_attention_instantiation_matches_plain_on_card(g, d, q_dtype, kv_dtype):
+    """Each compiled (G, D) pair in each pair of types, with lengths 0, one
+    chunk's tail, and the whole cache (two kv heads, S = 200)."""
+    _needs_card()
+    b, kvh, s = 3, 2, 200
+    dev = lambda x: torch.as_tensor(x, device="cuda")
+    q, k, v, _ = (dev(x) for x in _decode_inputs(b, g * kvh, kvh, d, s, seed=g * d))
+    q, k, v = q.to(DTYPES[q_dtype][1]), k.to(DTYPES[kv_dtype][1]), v.to(DTYPES[kv_dtype][1])
+    length = dev(np.asarray([0, 70, s], np.int32))
+    before = kernels.launch_counts()["decode_attention"]
+    got = ops.decode_attention(q, k, v, length)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    assert not got[0].float().any()
+    tol = 2e-5 if q_dtype == kv_dtype == "float32" else 2e-2
+    _close(got.cpu(), decode_attention_plain(q, k, v, length).cpu(), tol)
 
 
 @pytest.mark.cuda
