@@ -15,12 +15,17 @@ result lines:
   3. each kernel against its plain PyTorch version on the card, at odd
      shapes, at the reference kernel tests' shapes and at the shapes the main
      paths give it: K1 in both its modes (mirrored and general), K2 at every
-     compiled (G, D) and with a sequence of length 0;
+     compiled (G, D) and with a sequence of length 0, K3 at the ragged edges
+     of its tiling, with decays near 1 (where every chunk's carry shows) and
+     from rows that are not 16-byte aligned, and K3's output bitwise the
+     same on two calls and on replays of a CUDA graph;
   4. each kernel's device time at its main path's shape (median of
      CUDA-event-timed replays of a CUDA graph of repeated calls), its plain
      version's time, its bound, for K1 the general mode's time and the
-     special-function floor, and for K2 the time of
-     ``scaled_dot_product_attention`` on the same inputs;
+     special-function floor, for K2 the time of
+     ``scaled_dot_product_attention`` on the same inputs, and for K3 the
+     stream yardstick ``torch.add(a, x, out=h)``, which moves its bytes, and
+     its time from rows that are not 16-byte aligned (plain loads, not TMA);
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
      per objective;
   6. the fleet cycle, slice 1's main path: K = 4096 heterogeneous workers, 3
@@ -204,12 +209,19 @@ def decode_case(b, h, kvh, d, s, seed, q_dtype, kv_dtype, length=None):
     return q, k, v, length
 
 
-def scan_case(b, t, r, seed, dtype):
+def scan_case(b, t, r, seed, dtype, near_one=False):
+    """a = sigmoid(N(0, 1)), or with ``near_one`` a in [0.9, 0.9999) as the
+    RG-LRU's decays are: there a chunk's product of a stays far above
+    float32's rounding, so a carry that drops it shows."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
-    return torch.sigmoid(rn(b, t, r)).to(dtype), rn(b, t, r).to(dtype), rn(b, r).to(dtype)
+    if near_one:
+        a = 0.9 + 0.0999 * torch.rand((b, t, r), generator=gen, device="cuda")
+    else:
+        a = torch.sigmoid(rn(b, t, r))
+    return a.to(dtype), rn(b, t, r).to(dtype), rn(b, r).to(dtype)
 
 
 def phase_k2_parity():
@@ -249,25 +261,54 @@ def phase_k2_parity():
     return worst
 
 
+def misaligned(x):
+    """A copy of ``x`` that starts one element past a 16-byte boundary:
+    K3 cannot take its rows by TMA and stages them by plain loads."""
+    import torch
+
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:].view_as(x)
+    return y.copy_(x)
+
+
 def phase_k3_parity():
     """K3 against its plain version: tests/test_kernels.py's shapes in both
-    types, the continuation case, and the serving path's prefill shape."""
+    types, the continuation case, ragged edges of the tiling (one step, a
+    chunk less or more one step, a channel tile cut short, a last chunk of
+    one step) and the serving path's prefill shape, the last two also with
+    decays near 1, where every chunk's carry matters, and the path's shape
+    once more from rows that are not 16-byte aligned (plain loads, not TMA);
+    then, at the path's
+    shape, two calls on the same inputs bitwise equal, and replays of a
+    CUDA graph of one call equal to the eager call (the workspace is reset
+    on the stream, not by the host)."""
     import torch
-    from repro_torch.kernels.lru_scan import lru_scan, lru_scan_plain
+    from repro_torch.kernels.lru_scan import CHUNK, lru_scan, lru_scan_plain
 
     f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: 1e-5, bf16: 4e-2}
     worst = 0.0
-    cases = [((b, t, r), dt, 1e-5 if dt == f32 else 4e-2)
-             for (b, t, r) in [(2, 64, 128), (1, 100, 300), (3, 17, 64)] for dt in (f32, bf16)]
-    cases.append((K3_PATH, f32, 1e-5))
-    for i, (shape, dt, tol) in enumerate(cases):
-        a, x, h0 = scan_case(*shape, seed=200 + i, dtype=dt)
+    cases = [((b, t, r), dt, False) for (b, t, r) in [(2, 64, 128), (1, 100, 300), (3, 17, 64)]
+             for dt in (f32, bf16)]
+    for dt in (f32, bf16):
+        cases += [((1, 1, 2560), dt, False), ((2, CHUNK - 1, 300), dt, False),
+                  ((2, CHUNK + 1, 2560), dt, False), ((4, 4097, 2560), dt, False),
+                  ((4, 4097, 2560), dt, True)]
+    cases += [(K3_PATH, f32, False), (K3_PATH, f32, True)]
+    cases += [(K3_PATH, f32, "misaligned")]
+    for i, (shape, dt, near_one) in enumerate(cases):
+        a, x, h0 = scan_case(*shape, seed=200 + i, dtype=dt, near_one=bool(near_one))
+        if near_one == "misaligned":
+            a, x = misaligned(a), misaligned(x)
         got = lru_scan(a, x, h0)
         want = lru_scan_plain(a, x, h0)
         torch.cuda.synchronize()
-        err = assert_close(got, want, tol, tol)
+        err = assert_close(got, want, tol[dt], tol[dt])
         worst = max(worst, err)
-        say(f"[k3-parity] (B, T, R)={shape} {dt}: max|err| {err:.3e} within {tol:g}")
+        decays = "a in [0.9, 0.9999)" if near_one else "a = sigmoid(N(0, 1))"
+        if near_one == "misaligned":
+            decays += ", rows not 16-byte aligned"
+        say(f"[k3-parity] (B, T, R)={shape} {dt} {decays}: max|err| {err:.3e} "
+            f"within {tol[dt]:g}")
     # continuation: [0:k] then [k:] from the carried state equals one pass
     a, x, _ = scan_case(2, 48, 64, seed=300, dtype=f32)
     h0 = torch.zeros((2, 64), device="cuda")
@@ -277,6 +318,27 @@ def phase_k3_parity():
     err = assert_close(second, full[:, 20:], 1e-5, 1e-5)
     worst = max(worst, err)
     say(f"[k3-parity] continuation (2, 48, 64) split at 20: max|err| {err:.3e} within 1e-05")
+    # the chained carry rounds alike on every call, eager or replayed
+    a, x, h0 = scan_case(*K3_PATH, seed=301, dtype=f32, near_one=True)
+    once, again = lru_scan(a, x, h0), lru_scan(a, x, h0)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lru_scan(a, x, h0)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        replayed = lru_scan(a, x, h0)
+    for replay in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, once):
+            raise AssertionError(f"K3: graph replay {replay} differs from the eager call by "
+                                 f"{float((replayed - once).abs().max()):.3e}")
+    if not torch.equal(once, again):
+        raise AssertionError(f"K3: two calls differ by {float((once - again).abs().max()):.3e}")
+    say(f"[k3-parity] (B, T, R)={K3_PATH} float32 a in [0.9, 0.9999): two calls bitwise "
+        f"equal, 3 graph replays bitwise equal to the eager call")
     return worst
 
 
@@ -398,7 +460,9 @@ def phase_k2_timing():
 
 
 def phase_k3_timing():
-    """K3 at the serving path's prefill shape."""
+    """K3 at the serving path's prefill shape, and on a line of its own the
+    stream yardstick: ``torch.add(a, x, out=h)`` on the same tensors, which
+    moves the same bytes (two reads, one write) with no recurrence."""
     from repro_torch.kernels.lru_scan import lru_scan, lru_scan_plain
     import torch
 
@@ -406,12 +470,21 @@ def phase_k3_timing():
     a, x, h0 = scan_case(*K3_PATH, seed=7, dtype=torch.float32)
     ms = time_cuda(lambda: lru_scan(a, x, h0), runs=20)
     plain_ms = time_cuda(lambda: lru_scan_plain(a, x, h0), runs=5, reps=3)
+    a_off, x_off = misaligned(a), misaligned(x)
+    plain_loads_ms = time_cuda(lambda: lru_scan(a_off, x_off, h0), runs=20)
+    h = torch.empty_like(a)
+    stream_ms = time_cuda(lambda: torch.add(a, x, out=h), runs=20)
     ops = 2.0 * b * t * r  # one multiply-add per element
     nbytes = 4.0 * (3 * b * t * r + b * r)  # a, b read, h written, h0 read
     bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
-    say(f"[k3-time] (B, T, R)={K3_PATH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes); "
-        f"no single library call computes a linear recurrence")
+    say(f"[k3-stream] (B, T, R)={K3_PATH} float32: torch.add(a, x, out=h) {stream_ms:.4f} ms, "
+        f"{100 * bound_ms / stream_ms:.1f} % of the bound {bound_ms:.4f} ms (the same bytes, "
+        f"no recurrence; a yardstick of streaming, not a library call for K3)")
+    say(f"[k3-time] (B, T, R)={K3_PATH}: kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of the "
+        f"bound), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, "
+        f"{nbytes:.3e} bytes); no single library call computes a linear recurrence")
+    say(f"[k3-staging] (B, T, R)={K3_PATH} float32: TMA bulk copies {ms:.4f} ms, plain loads "
+        f"(rows not 16-byte aligned) {plain_loads_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 

@@ -12,8 +12,10 @@ T 4096, R 2560, float32), with K2's plain version and
 call (so K2's 16.8 MB stay in the 50 MB L2).  For each: the time of one
 call as CUDA events see it around a single call (host launch overhead
 included), around 20 calls back to back, and around a CUDA graph replay of
-20 calls (device time only); then each CUDA kernel's device time by name,
-from ``torch.profiler``; and last, how many PyTorch operations one decode
+20 calls (device time only); K3 in float32 and bfloat16 beside the stream
+yardstick ``torch.add(a, x, out=h)``, which moves K3's bytes; then each CUDA kernel's device time by name, from
+``torch.profiler``, and each function's sum of them (K3's includes the
+memset of its workspace); and last, how many PyTorch operations one decode
 step of full-width recurrentgemma-2b dispatches (each costs host time in an
 eager decode).  Needs a CUDA card; prints the card's name and power limit
 first.
@@ -143,15 +145,23 @@ def main() -> None:
         print(f"{name}: per-call events {events(fn, 1):.4f} ms, {REPS} back to back "
               f"{events(fn, REPS):.4f} ms, graph replay {graph_replay(fn):.4f} ms per call",
               flush=True)
+    for a_t, x_t in ((a, x), (a.bfloat16(), x.bfloat16())):
+        h = torch.empty_like(a_t)
+        print(f"K3 {a_t.dtype}: graph replay {graph_replay(lambda: lru_scan(a_t, x_t, h0)):.4f} "
+              f"ms per call; stream yardstick torch.add(a, x, out=h) "
+              f"{graph_replay(lambda: torch.add(a_t, x_t, out=h)):.4f} ms", flush=True)
     for name in ("K1 posterior_grid mirrored", "K2 decode_attention", "K3 lru_scan"):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(REPS):
                 fns[name]()
             torch.cuda.synchronize()
+        total = 0.0
         for evt in prof.key_averages():
             if evt.device_time_total > 0:
+                total += evt.device_time_total / REPS
                 print(f"{name}: {evt.key[:60]} {evt.count} launches, "
                       f"{evt.device_time_total / evt.count:.2f} us each", flush=True)
+        print(f"{name}: {total:.2f} us of device time per call, all entries", flush=True)
     print(f"recurrentgemma-2b decode step (batch 4): {decode_step_ops()} PyTorch operations "
           f"dispatched", flush=True)
 

@@ -4,7 +4,8 @@ Each kernel source under ``csrc/`` exposes a plain C entry point that
 launches on a given stream and returns ``cudaGetLastError()``.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the repository root, at first use, keyed on a hash of
-the source and the flags, and loaded with ``ctypes``.  Nothing is built when
+the source, the shared headers of ``csrc/`` and the flags, and loaded with
+``ctypes``.  Nothing is built when
 a module is imported.
 
 Every kernel counts its launches (``CudaKernel.launches``), so a run can show
@@ -49,7 +50,9 @@ def _nvcc() -> str:
 
 def build_library(source: Path) -> Path:
     """Compile ``source`` into a shared library, unless built already."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     lib = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if lib.exists():
         return lib

@@ -26,11 +26,21 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_cuda,
     decode_attention_plain,
 )
-from repro_torch.kernels.lru_scan import lru_scan_cuda, lru_scan_plain
+from repro_torch.kernels import lru_scan as k3
+from repro_torch.kernels.lru_scan import lru_scan_cuda, lru_scan_plain, scan_layout
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 DECODE_CASES = [(2, 8, 2, 64, 300), (1, 4, 4, 32, 128), (3, 9, 3, 16, 1000)]
 SCAN_CASES = [(2, 64, 128, 16), (1, 100, 300, 32), (3, 17, 64, 128)]
+SCAN_PATH = (4, 4096, 2560)  # the serving path's prefill: recurrentgemma-2b, batch 4
+
+
+def _ragged_scans():
+    """K3's (B, T, R) at the edges of its tiling's chunk C: one step, a
+    chunk less one, a chunk and one step, a last chunk of one step at the
+    path's width, R of 64 (a part tile) and 300 (not a whole tile)."""
+    c = k3.CHUNK
+    return [(1, 1, 2560), (2, c - 1, 300), (2, c + 1, 2560), (4, 4097, 2560), (3, 17, 64)]
 
 
 def _both(x, dtype):
@@ -52,9 +62,15 @@ def _decode_inputs(b, h, kvh, d, s, seed):
     return q, k, v, rng.integers(1, s + 1, (b,)).astype(np.int32)
 
 
-def _scan_inputs(b, t, r, seed):
+def _scan_inputs(b, t, r, seed, near_one=False):
+    """a = sigmoid(N(0, 1)), or with ``near_one`` a in [0.9, 0.9999) as the
+    RG-LRU's decays are: there a chunk's product of a stays far above
+    float32's rounding, so a carry that drops it shows."""
     rng = np.random.default_rng(seed)
-    a = (1.0 / (1.0 + np.exp(-rng.normal(size=(b, t, r))))).astype(np.float32)
+    if near_one:
+        a = (0.9 + 0.0999 * rng.uniform(size=(b, t, r))).astype(np.float32)
+    else:
+        a = (1.0 / (1.0 + np.exp(-rng.normal(size=(b, t, r))))).astype(np.float32)
     return a, rng.normal(size=(b, t, r)).astype(np.float32), rng.normal(size=(b, r)).astype(np.float32)
 
 
@@ -130,6 +146,70 @@ def test_lru_scan_continuation_matches_single_pass():
 def test_lru_scan_default_h0_is_zero():
     a, x, _ = (torch.as_tensor(y) for y in _scan_inputs(2, 9, 5, seed=4))
     torch.testing.assert_close(ops.lru_scan(a, x), ops.lru_scan(a, x, torch.zeros((2, 5))))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,t,r", [(1, 1, 300), (2, 127, 300), (2, 129, 64), (3, 17, 64)])
+def test_lru_scan_plain_matches_pallas_near_unit_decay(b, t, r, dtype):
+    """The plain version, which the on-card checks hold K3 against, agrees
+    with the reference's kernel where decays near 1 carry the state far
+    across chunks."""
+    inputs = _scan_inputs(b, t, r, seed=t + r, near_one=True)
+    (ja, ta), (jx, tx), (jh, th) = (_both(x, dtype) for x in inputs)
+    want = lru_scan_pallas(ja, jx, jh, block_t=16, interpret=True)
+    _close(lru_scan_plain(ta, tx, th), want, 1e-5 if dtype == "float32" else 4e-2)
+
+
+@pytest.mark.parametrize("near_one", [False, True])
+def test_lru_scan_near_unit_decay_shows_a_dropped_carry(near_one):
+    """The on-card checks can only catch a chained carry that drops A * h_in
+    (publishing the chunk's local end state H alone) where a chunk's decay A
+    stays above float32's rounding: with a = sigmoid(N(0, 1)) it underflows
+    over a chunk of CHUNK steps and the broken carry agrees with the plain
+    version; with decays near 1 it misses by far more than 1e-5."""
+    a, x, h0 = (torch.as_tensor(y)
+                for y in _scan_inputs(2, 3 * k3.CHUNK + 1, 64, seed=5, near_one=near_one))
+    h_in, outs = h0, []
+    for t0 in range(0, a.shape[1], k3.CHUNK):
+        seg = slice(t0, t0 + k3.CHUNK)
+        outs.append(lru_scan_plain(a[:, seg], x[:, seg], h_in))
+        h_in = lru_scan_plain(a[:, seg], x[:, seg], torch.zeros_like(h0))[:, -1]  # H alone
+    err = float((torch.cat(outs, dim=1) - lru_scan_plain(a, x, h0)).abs().max())
+    if near_one:
+        assert err > 1e-3
+    else:
+        assert err < 1e-5
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_lru_scan_layout_at_ragged_shapes(case):
+    """K3's tiling: every (t, r) of a sequence in exactly one tile, one
+    block per tile, and an 8-byte carry for every (chunk but the last, b, r)
+    after the counter in the workspace."""
+    bsz, t, r = (_ragged_scans() + [SCAN_PATH])[case]
+    lay = scan_layout(bsz, t, r)
+    assert (lay.n_chunks - 1) * k3.CHUNK < t <= lay.n_chunks * k3.CHUNK
+    assert (lay.n_rtiles - 1) * k3.WIDTH < r <= lay.n_rtiles * k3.WIDTH
+    assert lay.n_tiles == lay.n_chunks * bsz * lay.n_rtiles
+    assert lay.workspace_bytes == 16 + 8 * (lay.n_chunks - 1) * bsz * r
+    if (bsz, t, r) == SCAN_PATH:
+        assert (lay.n_chunks, lay.n_rtiles, lay.n_tiles) == (32, 80, 10240)
+        assert lay.workspace_bytes == 16 + 8 * 31 * 4 * 2560
+
+
+def test_lru_scan_cpu_path_takes_no_layout_workspace_or_launch(monkeypatch):
+    """A CPU tensor runs the plain version: no layout is computed, no
+    workspace allocated and no kernel launched."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the kernel's wrapper")
+
+    monkeypatch.setattr(k3, "scan_layout", refuse)
+    monkeypatch.setattr(k3, "lru_scan_cuda", refuse)
+    monkeypatch.setattr(k3._KERNEL, "launch", refuse)
+    a, x, h0 = map(torch.as_tensor, _scan_inputs(*SCAN_CASES[1][:3], seed=1))
+    before = kernels.launch_counts()
+    _close(ops.lru_scan(a, x, h0), lru_scan_plain(a, x, h0).numpy(), 0)
+    assert kernels.launch_counts() == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -225,10 +305,47 @@ def test_decode_attention_instantiation_matches_plain_on_card(g, d, q_dtype, kv_
 def test_lru_scan_kernel_matches_plain_on_card(dtype):
     _needs_card()
     tdt = DTYPES[dtype][1]
-    for b, t, r, _ in SCAN_CASES + [(4, 4096, 2560, 0)]:
-        a, x, h0 = (torch.as_tensor(y, device="cuda").to(tdt) for y in _scan_inputs(b, t, r, seed=t))
+    shapes = [(*case[:3], False) for case in SCAN_CASES] + [(*SCAN_PATH, False)]
+    shapes += [(*shape, False) for shape in _ragged_scans()]
+    shapes += [(*SCAN_PATH, True), (4, 4097, 2560, True)]  # decays near 1: the carry shows
+    for b, t, r, near_one in shapes:
+        a, x, h0 = (torch.as_tensor(y, device="cuda").to(tdt)
+                    for y in _scan_inputs(b, t, r, seed=t, near_one=near_one))
         before = kernels.launch_counts()["lru_scan"]
         got = ops.lru_scan(a, x, h0)
         torch.cuda.synchronize()
         assert kernels.launch_counts()["lru_scan"] == before + 1
         _close(got.cpu(), lru_scan_plain(a, x, h0).cpu(), 1e-5 if dtype == "float32" else 4e-2)
+
+
+@pytest.mark.cuda
+def test_lru_scan_kernel_is_bitwise_repeatable_on_card():
+    """The chained carry reads only its predecessor's inclusive state, so
+    two calls on the same inputs give the same bits."""
+    _needs_card()
+    a, x, h0 = (torch.as_tensor(y, device="cuda") for y in _scan_inputs(*SCAN_PATH, seed=11))
+    first = ops.lru_scan(a, x, h0)
+    second = ops.lru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_lru_scan_graph_replay_matches_eager_on_card():
+    """A CUDA graph of one K3 call, replayed several times, gives the eager
+    call's bits: the workspace is cleared on the stream by every replay."""
+    _needs_card()
+    a, x, h0 = (torch.as_tensor(y, device="cuda") for y in _scan_inputs(*SCAN_PATH, seed=12))
+    eager = ops.lru_scan(a, x, h0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.lru_scan(a, x, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.lru_scan(a, x, h0)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
