@@ -1,11 +1,13 @@
 """PyTorch and CUDA port of the Bayesian workflow partitioner.
 
 Mirrors the layout of the JAX package ``repro`` (``core``, ``kernels``,
-``sched``, ``configs``, ``models``, ``train``, ``launch``) and never imports
+``sched``, ``hier``, ``serve``, ``distributed``, ``configs``, ``models``,
+``train``, ``launch``) and never imports
 it or JAX.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the kernels are hand-written for Hopper and built with
 ``nvcc`` at first use.
 """
-from . import configs, convert, core, kernels, models, sched, train
+from . import configs, convert, core, distributed, hier, kernels, models, sched, serve, train
 
-__all__ = ["configs", "convert", "core", "kernels", "models", "sched", "train"]
+__all__ = ["configs", "convert", "core", "distributed", "hier", "kernels", "models", "sched",
+           "serve", "train"]

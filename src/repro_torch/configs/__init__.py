@@ -8,11 +8,11 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import recurrentgemma_2b, tinyllama_1_1b
+from . import recurrentgemma_2b, smollm_135m, tinyllama_1_1b
 from .base import ModelConfig, ShapeConfig, reduced
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, recurrentgemma_2b)
+    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, recurrentgemma_2b, smollm_135m)
 }
 
 

@@ -1,7 +1,8 @@
-"""Carry estimator state and model parameters over from the JAX package.
+"""Carry estimator and service state and model parameters over from the JAX package.
 
-The JAX ``GibbsState`` and ``SchedulerState`` are NamedTuples; handed over
-as the same trees with numpy arrays for leaves (``tree_map(np.asarray,
+The JAX states (``GibbsState``, ``SchedulerState``, ``Hyperprior``,
+``GateState``, ``TelemetryRing``, ``ServeState``) are NamedTuples; handed
+over as the same trees with numpy arrays for leaves (``tree_map(np.asarray,
 state)`` on the JAX side), they become the port's states on a given device.
 Fields are read by name, so this module imports neither JAX nor ``repro``.
 The JAX ``key`` leaves are dropped: the port's generator is seeded from an
@@ -13,11 +14,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.frontier import UnitParams
 from .core.gibbs import GibbsState
 from .core.moments import BetaParams
 from .core.posterior import NormalGammaParams
+from .hier.hyperprior import Hyperprior
 from .models.params import tree_map
-from .sched.scheduler import SchedulerState
+from .sched.scheduler import ProposeStats, SchedulerState
+from .serve.gate import GateState
+from .serve.ring import TelemetryRing
+from .serve.service import ServeState
 
 
 def _tensor(x, device, dtype=torch.float32) -> torch.Tensor:
@@ -41,11 +47,10 @@ def model_params_from_jax(tree, device):
 def to_gibbs_state(tree, device) -> GibbsState:
     """A JAX ``GibbsState`` of numpy leaves -> the port's ``GibbsState``."""
     ng = tree.ng
-    beta_params = lambda p: BetaParams(_tensor(p.a, device), _tensor(p.b, device))
     return GibbsState(
         ng=NormalGammaParams(*(_tensor(getattr(ng, k), device) for k in NormalGammaParams._fields)),
-        alpha_prior=beta_params(tree.alpha_prior),
-        beta_prior=beta_params(tree.beta_prior),
+        alpha_prior=_beta(tree.alpha_prior, device),
+        beta_prior=_beta(tree.beta_prior, device),
         mu=_tensor(tree.mu, device),
         lam=_tensor(tree.lam, device),
         alpha=_tensor(tree.alpha, device),
@@ -55,15 +60,70 @@ def to_gibbs_state(tree, device) -> GibbsState:
 
 def to_scheduler_state(tree, *, seed: int, device) -> SchedulerState:
     """A JAX ``SchedulerState`` of numpy leaves -> the port's state, with a
-    fresh generator seeded from ``seed``.  Capacity-slot states (a ``live``
-    mask) are not ported yet."""
-    if getattr(tree, "live", None) is not None:
-        raise ValueError("capacity-slot scheduler states (live mask) are not ported yet")
+    fresh generator seeded from ``seed``; a capacity state keeps its live
+    mask."""
     device = torch.device(device)
+    live = getattr(tree, "live", None)
     return SchedulerState(
         gibbs=to_gibbs_state(tree.gibbs, device),
         ewma_ll=_tensor(tree.ewma_ll, device),
         ewma_count=_tensor(tree.ewma_count, device, torch.int32),
         step=_tensor(tree.step, device, torch.int32),
         generator=torch.Generator(device=device).manual_seed(int(seed)),
+        live=None if live is None else _tensor(live, device),
+    )
+
+
+def _beta(p, device) -> BetaParams:
+    return BetaParams(_tensor(p.a, device), _tensor(p.b, device))
+
+
+def to_hyperprior(tree, device) -> Hyperprior:
+    """A JAX ``Hyperprior`` of numpy leaves -> the port's."""
+    return Hyperprior(
+        ng=NormalGammaParams(*(_tensor(getattr(tree.ng, k), device)
+                               for k in NormalGammaParams._fields)),
+        alpha_prior=_beta(tree.alpha_prior, device),
+        beta_prior=_beta(tree.beta_prior, device),
+        n_workers=_tensor(tree.n_workers, device),
+    )
+
+
+def to_gate_state(tree, device) -> GateState:
+    """A JAX ``GateState`` of numpy leaves -> the port's."""
+    return GateState(mean=_tensor(tree.mean, device), var=_tensor(tree.var, device),
+                     count=_tensor(tree.count, device, torch.int32))
+
+
+def to_ring(tree, device) -> TelemetryRing:
+    """A JAX ``TelemetryRing`` of numpy leaves -> the port's."""
+    i32 = lambda x: _tensor(x, device, torch.int32)
+    return TelemetryRing(
+        fracs=_tensor(tree.fracs, device), times=_tensor(tree.times, device),
+        valid=_tensor(tree.valid, device), head=i32(tree.head), count=i32(tree.count),
+        dropped=i32(tree.dropped), total=i32(tree.total),
+    )
+
+
+def to_serve_state(tree, *, seed: int, device) -> ServeState:
+    """A JAX ``ServeState`` of numpy leaves -> the port's, with the
+    scheduler's generator seeded from ``seed``."""
+    device = torch.device(device)
+    f32 = lambda x: _tensor(x, device)
+    i32 = lambda x: _tensor(x, device, torch.int32)
+    age = getattr(tree, "refresh_age", None)
+    return ServeState(
+        sched=to_scheduler_state(tree.sched, seed=seed, device=device),
+        ring=to_ring(tree.ring, device),
+        fractions=f32(tree.fractions),
+        stats=ProposeStats(*(f32(getattr(tree.stats, k)) for k in ProposeStats._fields)),
+        ref=UnitParams(*(f32(getattr(tree.ref, k)) for k in UnitParams._fields)),
+        staleness=i32(tree.staleness),
+        n_drains=i32(tree.n_drains),
+        n_proposes=i32(tree.n_proposes),
+        last_drift=f32(tree.last_drift),
+        gate=to_gate_state(tree.gate, device),
+        hyper=to_hyperprior(tree.hyper, device),
+        hyper_age=i32(tree.hyper_age),
+        refresh_age=None if age is None else i32(age),
     )

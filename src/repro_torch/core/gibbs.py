@@ -1,6 +1,7 @@
 """Algorithm 1 — Gibbs sampling of (mu, sigma, alpha, beta).
 
-PyTorch counterpart of ``repro.core.gibbs`` (its dense path).  Per batch of
+PyTorch counterpart of ``repro.core.gibbs`` (its single-device paths: dense,
+and the compressed active set of ``core.compress``).  Per batch of
 telemetry (T, F) the sampler runs ``n_iters`` sweeps; each sweep
 
   - recomputes the Normal-Gamma posterior (Eqs 6-9) at the current
@@ -87,30 +88,22 @@ def init_state(
     return GibbsState(ng, alpha_prior, beta_prior, mu, lam, alpha, beta)
 
 
-def gibbs_batch(
+def _advance(
     state: GibbsState,
     t: Tensor,
     f: Tensor,
-    mask: Optional[Tensor] = None,
+    mask: Optional[Tensor],
     *,
     generator: torch.Generator,
-    n_iters: int = 20,
-    grid_size: int = 512,
-    chain_priors: bool = True,
+    n_iters: int,
+    grid_size: int,
+    chain_priors: bool,
 ) -> Tuple[GibbsState, Tensor]:
-    """Process one telemetry batch; returns (new_state, log_likelihood).
+    """One telemetry batch of full Gibbs sweeps (the dense path).
 
-    Fleet-native: with leaves of shape (K,) and t/f/mask of shape (K, N) all
-    K chains advance together, and each sweep's grid posterior is ONE K1
-    launch covering every worker and both exponents.
-
-    Args:
-      state: current chain state (prior hyperparameters + samples).
-      t, f: observations, shape (N,) or (K, N).
-      mask: optional validity mask, same shape as ``t``.
-      generator: the chain's random source, on the state's device.
-      chain_priors: if True (paper's Algorithm 1), the batch posterior becomes
-        the next batch's prior.
+    Strictly per-worker: no operation mixes rows of the fleet axis, so a
+    gathered slab of rows computes what the same rows compute in the whole
+    fleet, given the same draws.
     """
     grid = exponent_grid(grid_size, device=t.device)
     st = state
@@ -135,6 +128,115 @@ def gibbs_batch(
 
     ll = log_likelihood(t, f, st.mu, st.lam, st.alpha, st.beta, mask)
     return st, ll
+
+
+def _advance_surrogate(
+    state: GibbsState,
+    t: Tensor,
+    f: Tensor,
+    mask: Optional[Tensor],
+    *,
+    generator: torch.Generator,
+    n_iters: int,
+    chain_priors: bool,
+) -> Tuple[GibbsState, Tensor]:
+    """Grid-free Gibbs sweeps against the compressed exponent posterior.
+
+    The stored Beta hyperparameters are the moment-matched surrogate of the
+    exponent posterior (``core.compress``): each sweep samples (alpha, beta)
+    from the frozen Beta fit and runs only the conjugate Normal-Gamma block.
+    The Beta priors are never re-chained; they stay frozen until the worker
+    next enters the active set.  Draws come in the dense path's order
+    (lambda, mu, alpha, beta per sweep).
+    """
+    st = state
+    ng_post = None
+    for _ in range(n_iters):
+        ng_post = update_normal_gamma(st.ng, t, f, st.alpha, st.beta, mask)
+        lam = sample_gamma(generator, ng_post.nu0, ng_post.psi0)
+        mu = sample_normal(generator, ng_post.mu0, _mu_scale(ng_post.kappa0, lam))
+        alpha = sample_beta(generator, st.alpha_prior.a, st.alpha_prior.b)
+        beta = sample_beta(generator, st.beta_prior.a, st.beta_prior.b)
+        st = st._replace(mu=mu, lam=lam, alpha=alpha, beta=beta)
+
+    if chain_priors and n_iters > 0:
+        # Only the conjugate block chains; the Beta surrogate stays frozen.
+        st = st._replace(ng=ng_post)
+
+    ll = log_likelihood(t, f, st.mu, st.lam, st.alpha, st.beta, mask)
+    return st, ll
+
+
+def tree_map2(fn: Callable[[Tensor, Tensor], Tensor], a, b):
+    """Apply ``fn`` to the paired tensor leaves of two states of one layout."""
+    if isinstance(a, Tensor):
+        return fn(a, b)
+    return type(a)(*(tree_map2(fn, x, y) for x, y in zip(a, b)))
+
+
+def _advance_active(
+    state: GibbsState,
+    t: Tensor,
+    f: Tensor,
+    mask: Optional[Tensor],
+    active_idx: Tensor,
+    **kw,
+) -> Tuple[GibbsState, Tensor]:
+    """Active-set advance: the full grid path for the gathered M-worker slab,
+    the compressed surrogate for every worker, the slab scattered over it.
+
+    The slab advances first, from the generator's state on entry, then the
+    surrogate sweeps all K: with ``active_idx = arange(K)`` the slab draws
+    exactly what the dense path draws, and the surrogate's rows are all
+    overwritten, so the result is bitwise the dense path's.  Gather
+    (``index_select``) and scatter (``index_copy``) take a device index, so
+    nothing waits for the device.
+    """
+    m = torch.ones_like(t) if mask is None else torch.broadcast_to(mask, t.shape).to(t.dtype)
+    take = lambda x: x.index_select(0, active_idx)
+    slab, ll_slab = _advance(tree_map(take, state), take(t), take(f), take(m), **kw)
+    kw.pop("grid_size")
+    rest, ll_rest = _advance_surrogate(state, t, f, m, **kw)
+    put = lambda full, part: full.index_copy(0, active_idx, part)
+    return tree_map2(put, rest, slab), put(ll_rest, ll_slab)
+
+
+def gibbs_batch(
+    state: GibbsState,
+    t: Tensor,
+    f: Tensor,
+    mask: Optional[Tensor] = None,
+    *,
+    generator: torch.Generator,
+    n_iters: int = 20,
+    grid_size: int = 512,
+    chain_priors: bool = True,
+    active_idx: Optional[Tensor] = None,
+) -> Tuple[GibbsState, Tensor]:
+    """Process one telemetry batch; returns (new_state, log_likelihood).
+
+    Fleet-native: with leaves of shape (K,) and t/f/mask of shape (K, N) all
+    K chains advance together, and each sweep's grid posterior is ONE K1
+    launch covering every worker and both exponents.
+
+    Args:
+      state: current chain state (prior hyperparameters + samples).
+      t, f: observations, shape (N,) or (K, N).
+      mask: optional validity mask, same shape as ``t``.
+      generator: the chain's random source, on the state's device.
+      chain_priors: if True (paper's Algorithm 1), the batch posterior becomes
+        the next batch's prior.
+      active_idx: optional (M,) int64 tensor of fleet rows (on the state's
+        device) to advance through the full grid path; the other K - M
+        workers advance through the grid-free compressed surrogate
+        (``core.compress``), and each sweep's K1 launch covers the M rows
+        only.  Bitwise the dense path at ``active_idx = arange(K)``.
+    """
+    kw = dict(generator=generator, n_iters=n_iters, grid_size=grid_size,
+              chain_priors=chain_priors)
+    if active_idx is not None and t.ndim >= 2:
+        return _advance_active(state, t, f, mask, active_idx, **kw)
+    return _advance(state, t, f, mask, **kw)
 
 
 def discount_state(state: GibbsState, rho: float) -> GibbsState:

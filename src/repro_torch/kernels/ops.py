@@ -28,6 +28,8 @@ def posterior_grid_fleet(
     mask: Optional[Tensor] = None,
     *,
     symmetric_grid: bool = False,
+    active_idx: Optional[Tensor] = None,
+    out_prev: Optional[Tensor] = None,
 ) -> Tensor:
     """Both exponent posteriors for a whole fleet in one kernel launch.
 
@@ -38,9 +40,34 @@ def posterior_grid_fleet(
     launch and unfolded after it, so the whole stack still costs ONE launch.
     ``symmetric_grid=True`` (only for a midpoint-symmetric grid, as
     ``exponent_grid``) takes K1's mirrored mode.
+
+    ``active_idx`` (an (M,) int64 tensor on the fleet's device; t of shape
+    (K, N)) launches K1 over the gathered M-worker slab only: the rows are
+    gathered outside the kernel (``index_select``), the kernel runs on
+    (M, N), and its (M, 2, G) result is scattered (``index_copy``) into
+    ``out_prev``, a (K, 2, G) grid cache, or into zeros when there is none.
+    Rows outside ``active_idx`` keep ``out_prev``'s values, and at
+    ``active_idx = arange(K)`` the result is bitwise the dense launch's.
     """
     if mask is None:
         mask = torch.ones_like(t)
+    if active_idx is not None and t.ndim == 2:
+        k = t.shape[0]
+        take_kn = lambda x: torch.broadcast_to(x, t.shape).index_select(0, active_idx)
+        take_k = lambda x: torch.broadcast_to(
+            torch.as_tensor(x, dtype=torch.float32, device=t.device), (k,)
+        ).index_select(0, active_idx)
+        slab = posterior_grid_fleet(
+            grid, take_kn(t), take_kn(f),
+            take_k(mu), take_k(lam), take_k(alpha), take_k(beta),
+            type(alpha_prior)(take_k(alpha_prior.a), take_k(alpha_prior.b)),
+            type(beta_prior)(take_k(beta_prior.a), take_k(beta_prior.b)),
+            take_kn(mask),
+            symmetric_grid=symmetric_grid,
+        )
+        base = (torch.zeros((k, *slab.shape[1:]), dtype=slab.dtype, device=slab.device)
+                if out_prev is None else out_prev)
+        return base.index_copy(0, active_idx, slab)
     lead = t.shape[:-1]
     n = t.shape[-1]
     flat_kn = lambda x: torch.broadcast_to(x, t.shape).reshape(-1, n)

@@ -147,6 +147,7 @@ def quantize_fractions(
     objective: Objective = Objective(),
     min_per_worker: int = 1,
     refine_passes: int = 4,
+    live: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Round simplex fractions to integer microbatch counts summing to total.
 
@@ -155,7 +156,25 @@ def quantize_fractions(
     they reduce the true (quantized) objective, on ``params``' device.
     Invariants: counts.sum() == total_microbatches and every count >=
     min_per_worker, for any fraction vector.  Numpy in, numpy out.
+
+    ``live`` (a host (K,) boolean mask of a capacity-slot state) restricts
+    quantization to live workers: dead slots get exactly 0 microbatches, are
+    exempt from the ``min_per_worker`` floor, and never enter the refinement.
     """
+    if live is not None:
+        alive = np.flatnonzero(np.asarray(live, bool))
+        sub = np.asarray(fracs, np.float64)[alive]
+        sub_params = None
+        if params is not None:
+            rows = torch.as_tensor(alive, device=params.mu.device)
+            sub_params = UnitParams(*(x.index_select(0, rows) for x in params))
+        counts = np.zeros(len(live), np.int64)
+        counts[alive] = quantize_fractions(
+            sub / max(sub.sum(), 1e-30), total_microbatches, sub_params,
+            objective=objective, min_per_worker=min_per_worker, refine_passes=refine_passes,
+        )
+        return counts
+
     fracs = np.asarray(fracs, np.float64)
     k = len(fracs)
     if total_microbatches < k * min_per_worker:

@@ -234,10 +234,18 @@ def test_decode_attention_cuda_refuses_uninstantiated_group_and_head_dim(b, h, k
     assert kernels.launch_counts() == before
 
 
+# Ported configurations that run only reduced (smollm-135m serves the CPU
+# smoke of partitioned serving): no instantiation at full width, which the
+# wrapper must refuse before launching.
+REDUCED_ONLY = {"smollm-135m"}
+
+
 def test_every_parity_shape_and_config_is_instantiated():
     """The (G, D) pairs of tests/test_kernels.py's shapes (the cases, the
-    empty tail) and of every ported configuration (full and reduced) have a
-    kernel instantiation, and the wrapper's list is the CUDA source's."""
+    empty tail) and of every ported configuration (full and reduced; reduced
+    only for ``REDUCED_ONLY``) have a kernel instantiation, the wrapper
+    refuses the full width of a reduced-only configuration, and the
+    wrapper's list is the CUDA source's."""
     import re
 
     from repro_torch.configs import ARCHS, get_arch, reduced
@@ -245,10 +253,19 @@ def test_every_parity_shape_and_config_is_instantiated():
 
     shapes = DECODE_CASES + [(2, 4, 1, 32, 2048)]
     pairs = {(h // kvh, d) for _, h, kvh, d, _ in shapes}
+    pair = lambda cfg: (cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
     for name in ARCHS:
-        for cfg in (get_arch(name), reduced(get_arch(name))):
-            pairs.add((cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim))
+        pairs.add(pair(reduced(get_arch(name))))
+        if name not in REDUCED_ONLY:
+            pairs.add(pair(get_arch(name)))
     assert pairs <= INSTANTIATED, pairs - INSTANTIATED
+    for name in REDUCED_ONLY:
+        cfg = get_arch(name)
+        assert pair(cfg) not in INSTANTIATED
+        q = torch.zeros((1, cfg.num_heads, cfg.resolved_head_dim))
+        kv = torch.zeros((1, 4, cfg.num_kv_heads, cfg.resolved_head_dim))
+        with pytest.raises(ValueError, match="no instantiation"):
+            decode_attention_cuda(q, kv, kv, torch.full((1,), 4, dtype=torch.int32))
     source = (CSRC / "decode_attention.cu").read_text()
     compiled = {(int(g), int(d)) for g, d in re.findall(r"^\s*DECODE_CASE\((\d+), (\d+)\)", source, re.M)}
     assert compiled == INSTANTIATED

@@ -300,9 +300,12 @@ def test_serve_cli_runs_reduced_on_the_cpu():
     assert proc.returncode == 0, proc.stderr
     assert "arch=recurrentgemma-2b-smoke batch=4 prompt=8" in proc.stdout
     assert "generated token ids (seq 0):" in proc.stdout
-    refused = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--rounds", "2",
-                              "--device", "cpu"], capture_output=True, text=True, timeout=300)
-    assert refused.returncode != 0 and "ROADMAP item 9" in refused.stderr
+    # partitioned serving (--rounds) runs too since the service is ported
+    rounds = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--rounds", "2",
+                             "--drain-every", "1", "--device", "cpu", "--prompt-len", "8",
+                             "--gen-len", "2"], capture_output=True, text=True, timeout=300)
+    assert rounds.returncode == 0, rounds.stderr
+    assert "service: 2 pushes, 2 drains" in rounds.stdout and "oracle makespan" in rounds.stdout
 
 
 @pytest.mark.cuda

@@ -89,6 +89,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.core.gibbs\n"
         "import repro_torch.models, repro_torch.configs, repro_torch.train\n"
         "import repro_torch.launch, repro_torch.launch.serve\n"
+        "import repro_torch.hier, repro_torch.serve, repro_torch.distributed\n"
+        "import repro_torch.core.compress, repro_torch.configs.smollm_135m\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
