@@ -60,6 +60,10 @@ result lines:
      ``compression_report``, (f) a capacity state of 2 x 4096 slots through
      admit -> observe -> propose -> retire with no sync, dead slots getting
      exactly 0 of the proposal and of the quantized microbatches;
+ 7b. smollm-135m at full width through ``python -m repro_torch.launch.serve``
+     with SMOLLM_ARGV (batch 4, 512-token prompts, 16 tokens), after a
+     2-token warm-up: K2 launches (30 per decode step, (G, D) = (3, 64)),
+     tokens in range, finite logits;
  10. partitioned serving at full width: ``repro_torch.launch.serve`` with
      PART_ARGV (recurrentgemma-2b, 16 rounds, 4 replicas, batch 16, 1024-token
      prompts, 16 tokens, a drain every 4 rounds, the drift gate at the
@@ -68,7 +72,23 @@ result lines:
      summing to 1, the oracle makespans, and K1, K2 and K3 launches; then
      each kernel against its plain version at the shapes this run gave it
      (K1 at the service's (replicas, G, ring), K3 at every prefill batch
-     replica 0 served, K2 at those batches over the decode steps' lengths).
+     replica 0 served, K2 at those batches over the decode steps' lengths);
+ 11. the workflow DAG, slice 6's main path: 8 stages (0 -> {1, 2, 3} -> 4 ->
+     {5, 6} -> 7; stage 2 conditional at p 0.3, stage 6 at 0.5, stage 3
+     reworked at 0.4 up to 4 attempts, stage 5 at 0.2 up to 3, stage 7 256
+     workers wide, the others K = 512: S K = 4096 estimated workers), 3
+     cycles of ``observe_dag`` (N = 256) -> ``propose_dag`` (a variance
+     budget of half the uniform split's) -> ``quantize_dag_fractions`` (8 K
+     microbatches a stage, largest remainder), observe and propose under
+     sync-debug "error";
+     K1 against its plain version at the folded (8, 512, 256) block through
+     the stacked entry, K1 launches (20 per ``observe_dag``), times of each
+     step and of ``simulate_workflow`` at 2e5 samples, peak memory; the
+     learned split against the uniform one on the simulator with common
+     random numbers (asserted), the stochastic-aware against the
+     deterministic-assumption split, the analytic composed moments against
+     the simulator, and ``examples/pipeline_dag_torch.py``'s diamond with
+     its two assertions.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -232,6 +252,12 @@ def assert_close(got, want, rtol, atol) -> float:
 K2_PATH = (4, 10, 1, 256, 2048)
 # K3 at the serving path's prefill: B 4, T 4096, R 2560, float32.
 K3_PATH = (4, 4096, 2560)
+# smollm-135m at full width (phase 7b): batch 4, 512-token prompts, 16 tokens;
+# K2 at its decode, (B 4, H 9, KVH 3, D 64, S = prompt + gen + 8 cache rows).
+SMOLLM_BATCH, SMOLLM_PROMPT, SMOLLM_GEN = 4, 512, 16
+SMOLLM_ARGV = ["--arch", "smollm-135m", "--full", "--batch", str(SMOLLM_BATCH),
+               "--prompt-len", str(SMOLLM_PROMPT), "--gen-len", str(SMOLLM_GEN)]
+K2_SMOLLM = (SMOLLM_BATCH, 9, 3, 64, SMOLLM_PROMPT + SMOLLM_GEN + 8)
 
 
 def decode_case(b, h, kvh, d, s, seed, q_dtype, kv_dtype, length=None):
@@ -286,6 +312,9 @@ def phase_k2_parity():
     s = K2_PATH[-1]
     cases.append((K2_PATH, bf16, f32, [1, s, 1000, s - 1], 2e-2))  # the serving path
     cases.append((K2_PATH, f32, f32, [1, s, 1000, s - 1], 2e-5))  # its teacher-forced check
+    s = K2_SMOLLM[-1]  # phase 7b's decode: lengths from the first step to the last, and S
+    cases.append((K2_SMOLLM, bf16, f32, [SMOLLM_PROMPT + 1, SMOLLM_PROMPT + SMOLLM_GEN - 1, 520, s],
+                  2e-2))
     worst = 0.0
     for i, (shape, q_dt, kv_dt, length, tol) in enumerate(cases):
         args = decode_case(*shape, seed=100 + i, q_dtype=q_dt, kv_dtype=kv_dt, length=length)
@@ -1122,6 +1151,274 @@ def phase_partitioned_parity(result, cfg):
     return errs
 
 
+def phase_serve_smollm():
+    """Phase 7b: smollm-135m at full width through the serving CLI's entry
+    point; K2 at (G, D) = (3, 64) once per layer of every decode step."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import ApplyCtx
+
+    launch_serve.main(SMOLLM_ARGV + ["--gen-len", "2"])  # set-up at the same shapes
+    kernels.reset_launch_counts()
+    out = launch_serve.main(SMOLLM_ARGV)
+    launches = kernels.launch_counts()
+    cfg, tokens = out["cfg"], out["tokens"]
+    logits, _ = model_zoo.decode_step(cfg, out["params"], tokens[:, -1:], out["cache"],
+                                      ctx=ApplyCtx(mode="decode"))
+    if logits.shape != (SMOLLM_BATCH, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"logits {tuple(logits.shape)} not finite or misshapen")
+    if tokens.shape != (SMOLLM_BATCH, SMOLLM_GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"generated tokens {tuple(tokens.shape)} out of shape or range")
+    want = cfg.num_layers * (SMOLLM_GEN - 1)
+    if launches.get("decode_attention") != want:
+        raise AssertionError(f"K2 launched {launches} times serving smollm-135m, not {want}")
+    say(f"[smollm] {' '.join(SMOLLM_ARGV)}: {cfg.num_layers} layers, (G, D) = "
+        f"({cfg.num_heads // cfg.num_kv_heads}, {cfg.resolved_head_dim}); prefill "
+        f"{out['prefill_ms']:.1f} ms, decode {out['decode_ms']:.2f} ms/token, logits finite")
+    say(f"[smollm] launches on the main path: {launches}")
+    return launches
+
+
+# Phase 11: the workflow DAG (slice 6).  S = 8 stages, K = 512 workers each
+# (stage 7 256 wide), N = 256 observations per worker per batch.
+DAG_K, DAG_N, DAG_MC = 512, 256, 200_000
+DAG_EDGES = ((0, 1), (0, 2), (0, 3), (1, 4), (2, 4), (3, 4), (4, 5), (4, 6), (5, 7), (6, 7))
+DAG_SCALE = (0.4, 1.6, 1.0, 0.5, 0.4, 0.8, 1.2, 0.6)
+DAG_TOL = dict(mean=1.5e-2, var=8e-2)  # the reference's in-tree tolerances, printed beside
+
+
+def dag_topology(k):
+    """(deterministic, stochastic) topologies of phase 11 at width ``k``."""
+    from repro_torch import sched
+
+    det = sched.WorkflowDAG.from_edges(8, DAG_EDGES, num_workers=k).with_stage_workers(
+        (k,) * 7 + (k // 2,))
+    sto = det.with_stochastic(
+        exec_probs=(1.0, 1.0, 0.3, 1.0, 1.0, 1.0, 0.5, 1.0),
+        rework_probs=(0.0, 0.0, 0.0, 0.4, 0.0, 0.2, 0.0, 0.0),
+        max_retries=(1, 1, 1, 4, 1, 3, 1, 1),
+    )
+    return det, sto
+
+
+def dag_truth(k, device, seed=2016):
+    """Per stage, workers k < K/2 fast and noisy (mu 5, sigma 6), the rest
+    slow and precise (mu 9, sigma 0.3), as benchmarks/bench_dag.py's
+    diamond; each mu jittered by e^U[-0.2, 0.2], stages scaled by
+    DAG_SCALE; alpha 0.9, beta 0.55.  From a numpy seed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.frontier import UnitParams
+
+    rng = np.random.default_rng(seed)
+    fast = np.arange(k) < k // 2
+    scale = np.asarray(DAG_SCALE)[:, None]
+    mu = scale * np.where(fast, 5.0, 9.0)[None, :] * np.exp(rng.uniform(-0.2, 0.2, (8, k)))
+    sigma = scale * np.where(fast, 6.0, 0.3)[None, :] * np.ones((8, 1))
+    leaves = (mu, sigma, np.full((8, k), 0.9), np.full((8, k), 0.55))
+    return UnitParams(*(torch.as_tensor(x, dtype=torch.float32, device=device) for x in leaves))
+
+
+def check_dag_k1_parity(device, k=DAG_K, n=DAG_N):
+    """K1 at the folded block that each of observe_dag's sweeps launches,
+    (8 x k, GRID, n), through the stacked (S, K, N) entry, in both modes."""
+    import torch
+    from repro_torch.core.moments import BetaParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posterior_grid import posterior_grid_plain
+
+    worst = 0.0
+    stack = lambda x: x.reshape(8, k, *x.shape[1:])
+    for sym in (True, False):
+        args = fleet_case(8 * k, GRID, n, seed=500, device=device, zero_cols=not sym)
+        grid, t, f, mask, mu, lam, alpha, beta, aa, ab, ba, bb = args
+        got = ops.posterior_grid_fleet(
+            grid, stack(t), stack(f), stack(mu), stack(lam), stack(alpha), stack(beta),
+            BetaParams(stack(aa), stack(ab)), BetaParams(stack(ba), stack(bb)), stack(mask),
+            symmetric_grid=sym)
+        want = posterior_grid_plain(*args, symmetric_grid=sym)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        err, rel = assert_logp_close(got.reshape(8 * k, 2, GRID), want)
+        worst = max(worst, err)
+        say(f"[dag] K1 {'mirrored' if sym else 'general '} through the stacked entry at (S, K, N) = "
+            f"(8, {k}, {n}), G={GRID}: max|err| {err:.3e}; over its row's 1 + max|logp| {rel:.3e} "
+            f"within rtol {RTOL:g}")
+    return worst
+
+
+def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
+    """Slice 6's main path: observe_dag -> propose_dag -> quantize_dag_fractions
+    on the 8-stage stochastic DAG, then its quality on the simulator.
+
+    ``device="cpu"`` with a small ``k``, ``n`` and ``mc`` rehearses it
+    without a card (no sync check, no device clocks)."""
+    import numpy as np
+    import torch
+    import pipeline_dag_torch
+    from repro_torch import kernels, sched, sim
+    from repro_torch.device import no_sync
+
+    on_card = device != "cpu"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    k1_err = check_dag_k1_parity(device, k, n)
+    det, sto = dag_topology(k)
+    truth = dag_truth(k, device)
+    live = sto.stage_live(device)
+    live_np = live.cpu().numpy() > 0
+    uniform = sched.uniform_fractions(sto, device)
+    budget = 0.5 * float(sched.dag_stats(sto, uniform, truth, num_points=512).var)
+    # The proposal floor at one microbatch in 8K, as phase 9: the default
+    # 5e-3 x 512 > 1 would force the uniform split.
+    config = sched.SchedulerConfig(objective=sched.Objective.variance_budget(budget),
+                                   n_iters=SWEEPS, grid_size=GRID, num_points=512,
+                                   opt_steps=200, min_fraction=1.0 / (8 * k))
+    # Each stage is rounded to 8K microbatches by largest remainder, without
+    # the objective's move refinement: an end-to-end variance budget gives
+    # no per-stage objective to refine against, and refining each stage on
+    # E[t] walked 512 moves a stage away from the budgeted split, at ~37 ms
+    # a move on an H100 (PERF.md).  The refinement runs once below.
+    total = 8 * k
+    gen = torch.Generator(device=device).manual_seed(2017)
+
+    def telemetry(fracs):
+        # n jobs per worker, sizes e^[-2, 2] around its share (dead columns
+        # work a benign 1/K share; observe_dag masks them)
+        share = torch.where(live > 0, fracs, 1.0 / k)[..., None]
+        f = share * torch.exp(-2.0 + 4.0 * torch.rand((8, k, n), generator=gen, device=device))
+        eps = torch.randn((8, k, n), generator=gen, device=device)
+        t = f ** truth.alpha[..., None] * truth.mu[..., None] + \
+            f ** truth.beta[..., None] * truth.sigma[..., None] * eps
+        return sched.Telemetry(fracs=f, times=t)
+
+    state = sched.init_dag(config, sto, seed=0, device=device)
+    fracs = uniform
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    for c in range(CYCLES):
+        telem = telemetry(fracs)
+
+        def observe_and_propose():
+            with no_sync(device):
+                st, ll = sched.observe_dag(state, telem, config, dag=sto)
+                fr, stats = sched.propose_dag(st, sto, config)
+            return st, ll, fr, stats
+
+        (state, ll, fracs, stats), ms_cycle = clock(observe_and_propose)
+        counts, ms_quant = clock(lambda: sched.quantize_dag_fractions(
+            fracs.cpu().numpy(), total, live=live_np))
+        fr = fracs.cpu().numpy()
+        if not bool(torch.isfinite(ll[live > 0]).all()):
+            raise AssertionError("non-finite log-likelihood on a live worker")
+        if not (np.isfinite(fr).all() and np.abs(fr.sum(-1) - 1.0).max() < 1e-4
+                and (fr[~live_np] == 0).all() and (fr[live_np] > 0).all()):
+            raise AssertionError(f"stage splits not finite, not on the simplex, or dead columns "
+                                 f"not 0: row sums {fr.sum(-1)}")
+        if not ((counts.sum(-1) == total).all() and (counts[~live_np] == 0).all()
+                and (counts[live_np] >= 1).all()):
+            raise AssertionError(f"counts {counts.sum(-1)} per stage, not {total}, or a dead "
+                                 f"column got work")
+        say(f"[dag] cycle {c}: observe_dag + propose_dag {ms_cycle:.1f} ms (sync-free), "
+            f"quantize_dag_fractions {ms_quant:.1f} ms, E[t] {float(stats.e_t):.5f} "
+            f"Var {float(stats.var):.6f} (budget {budget:.6f})")
+    launches = kernels.launch_counts()
+
+    # Each step on its own, on the final beliefs (after the launch count).
+    def guarded(fn):
+        with no_sync(device):
+            return fn()
+
+    telem = telemetry(fracs)
+    _, ms_observe = clock(lambda: guarded(lambda: sched.observe_dag(state, telem, config, dag=sto)))
+    (f_det, _), ms_det = clock(lambda: guarded(lambda: sched.propose_dag(state, det, config)))
+    (f_sto, _), ms_sto = clock(lambda: guarded(lambda: sched.propose_dag(state, sto, config)))
+    rounded, ms_quant = clock(lambda: sched.quantize_dag_fractions(
+        f_sto.cpu().numpy(), total, live=live_np))
+    # The move refinement (quantize_fractions(params=)) at this width, once,
+    # as a yardstick: one pass, at most 128 moves a stage, one device read a
+    # move; each stage refines its own E[t] under the truth.
+    refined, ms_refine = clock(lambda: sched.quantize_dag_fractions(
+        f_sto.cpu().numpy(), total, truth, refine_passes=1, live=live_np))
+    if not ((refined.sum(-1) == total).all() and (refined[~live_np] == 0).all()
+            and (refined[live_np] >= 1).all()):
+        raise AssertionError(f"refined counts {refined.sum(-1)} per stage, not {total}, or a "
+                             f"dead column got work")
+    moves = int(np.abs(refined - rounded).sum()) // 2  # each move shifts one microbatch
+    # Quality at the true parameters: one sampled world for every split.
+    price = lambda f: sim.simulate_workflow(7, sto, f, truth, num_samples=mc, device=device)
+    t_sto, ms_sim = clock(lambda: price(f_sto))
+    t_det, t_uni = price(f_det), price(uniform)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    e_sto, e_det, e_uni = float(t_sto.mean()), float(t_det.mean()), float(t_uni.mean())
+    d_uni, d_det = t_uni - t_sto, t_det - t_sto
+    se = lambda d: float(d.std()) / len(d) ** 0.5
+    if not e_sto < e_uni:
+        raise AssertionError(f"learned split E[t] {e_sto:.5f} not below the uniform split's {e_uni:.5f}")
+    # Where the deterministic-assumption split goes: the workers believed at
+    # mu <= 0 (a stage solve ranks them fastest), and the same split made
+    # from the truth instead of the beliefs (params=).
+    beliefs = sched.stage_params(state)
+    negative = ((beliefs.mu <= 0) & (live > 0)).to(f_det.dtype)
+    f_det_truth, _ = sched.propose_dag(state, det, config, params=truth)
+    e_det_truth = float(price(f_det_truth).mean())
+    analytic = sched.dag_stats(sto, f_sto, truth, num_points=config.num_points)
+    a_e, a_v, s_v = float(analytic.e_t), float(analytic.var), float(t_sto.var(correction=0))
+    say(f"[dag] S=8 K={k} N={n} (S K = {8 * k}): observe_dag {ms_observe:.1f} ms, propose_dag "
+        f"deterministic {ms_det:.1f} ms, stochastic {ms_sto:.1f} ms (joint refinement included), "
+        f"quantize_dag_fractions {ms_quant:.1f} ms, simulate_workflow ({len(t_sto)} samples) "
+        f"{ms_sim:.1f} ms, peak device memory {peak / 2**20:.1f} MiB")
+    say(f"[dag] quantize_dag_fractions with the move refinement (params=, one pass): "
+        f"{ms_refine:.1f} ms for at least {moves} moves over 8 stages"
+        f"{f', {ms_refine / moves:.2f} ms a move at most' if moves else ''}")
+    say(f"[dag] E[t] on the simulator under the truth (common random numbers, {len(t_sto)} "
+        f"samples): learned {e_sto:.5f}, uniform {e_uni:.5f} (uniform - learned {float(d_uni.mean()):.5f}"
+        f" +- {se(d_uni):.5f} s.e.), deterministic-assumption {e_det:.5f} (minus the "
+        f"stochastic-aware split: {float(d_det.mean()):+.5f} +- {se(d_det):.5f} s.e.)")
+    say(f"[dag] {int(negative.sum())} live workers believed at mu <= 0 take "
+        f"{float((f_det * negative).sum(-1).mean()):.4f} of a stage's work in the "
+        f"deterministic-assumption split, {float((f_sto * negative).sum(-1).mean()):.4f} in the "
+        f"stochastic-aware one; the deterministic-assumption split made from the truth "
+        f"(params=): E[t] {e_det_truth:.5f} on the simulator")
+    fast = (torch.arange(k, device=device) < k // 2).to(f_det.dtype)
+    stage_e = lambda f: sched.dag_stats(sto, f, truth, num_points=config.num_points).stage_e
+    row = lambda x: "[" + " ".join(f"{float(v):.3f}" for v in x) + "]"
+    for name, f in (("uniform", uniform), ("deterministic-assumption", f_det),
+                    ("stochastic-aware", f_sto), ("deterministic from the truth", f_det_truth)):
+        say(f"[dag] {name} split, stage by stage: E under the truth {row(stage_e(f))}, share on "
+            f"the fast-noisy half {row((f * fast).sum(-1))}")
+    ratio = lambda x, y, m: float(torch.median((x / y)[(m > 0) & (live > 0)]))
+    say(f"[dag] beliefs over the truth (median over live workers): mu {ratio(beliefs.mu, truth.mu, fast):.3f}"
+        f" fast-noisy, {ratio(beliefs.mu, truth.mu, 1 - fast):.3f} slow-precise; sigma "
+        f"{ratio(beliefs.sigma, truth.sigma, fast):.3f} fast-noisy, "
+        f"{ratio(beliefs.sigma, truth.sigma, 1 - fast):.3f} slow-precise")
+    say(f"[dag] learned split, analytic composition against the simulator: E[t] {a_e:.5f} vs "
+        f"{e_sto:.5f} ({100 * (a_e / e_sto - 1):+.2f} %, the reference's in-tree tolerance "
+        f"{100 * DAG_TOL['mean']:.1f} %), Var {a_v:.6f} vs {s_v:.6f} ({100 * (a_v / s_v - 1):+.2f} %, "
+        f"tolerance {100 * DAG_TOL['var']:.0f} %; the fan-outs share ancestors, where the PERT max "
+        f"is approximate: not asserted)")
+    say(f"[dag] launches on the main path: {launches}")
+
+    diamond = pipeline_dag_torch.stochastic_diamond(device, diamond_mc)
+    if not (diamond["gap_det"] > 0.0 and diamond["gap_uniform"] > 0.0):
+        raise AssertionError(f"examples/pipeline_dag_torch.py's diamond: {diamond}")
+    say(f"[dag] examples/pipeline_dag_torch.py's diamond on {device}: the stochastic-aware split "
+        f"beats the deterministic-assumption one by {diamond['gap_det']:+.4f} (+- "
+        f"{diamond['se_det']:.4f} s.e.) and the uniform one by {diamond['gap_uniform']:+.4f}")
+    return launches, k1_err
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -1149,6 +1446,7 @@ def main() -> int:
         if serve_launches.get(name) != n:
             raise AssertionError(f"{name} launched {serve_launches.get(name)} times in serving, not {n}")
     phase_teacher_forcing()
+    smollm_launches = phase_serve_smollm()
     service_launches, _ = phase_service()
     drives = 2 * (1 + SVC_TICKS)  # dense and active loops, a warm-up tick and the timed ones
     if service_launches.get("posterior_grid_fleet") != SWEEPS * drives:
@@ -1166,8 +1464,12 @@ def main() -> int:
     part_cfg = get_arch(PART_ARGV[PART_ARGV.index("--arch") + 1])
     for name, err in phase_partitioned_parity(result, part_cfg).items():
         errs[name] = max(errs[name], err)
-    by_path = dict(fleet=fleet_launches, serve=serve_launches, service=service_launches,
-                   partitioned=part_launches)
+    dag_launches, dag_err = phase_dag()
+    errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], dag_err)
+    if dag_launches.get("posterior_grid_fleet") != SWEEPS * CYCLES:  # 20 per observe_dag
+        raise AssertionError(f"K1 launched {dag_launches} times on the DAG path, not {SWEEPS * CYCLES}")
+    by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
+                   service=service_launches, partitioned=part_launches, dag=dag_launches)
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),
         ("decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:81"),

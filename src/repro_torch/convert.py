@@ -1,7 +1,8 @@
 """Carry estimator and service state and model parameters over from the JAX package.
 
-The JAX states (``GibbsState``, ``SchedulerState``, ``Hyperprior``,
-``GateState``, ``TelemetryRing``, ``ServeState``) are NamedTuples; handed
+The JAX states (``GibbsState``, ``SchedulerState``, ``DagState``,
+``Hyperprior``, ``GateState``, ``TelemetryRing``, ``ServeState``) are
+NamedTuples; handed
 over as the same trees with numpy arrays for leaves (``tree_map(np.asarray,
 state)`` on the JAX side), they become the port's states on a given device.
 Fields are read by name, so this module imports neither JAX nor ``repro``.
@@ -20,6 +21,7 @@ from .core.moments import BetaParams
 from .core.posterior import NormalGammaParams
 from .hier.hyperprior import Hyperprior
 from .models.params import tree_map
+from .sched.dag import DagState
 from .sched.scheduler import ProposeStats, SchedulerState
 from .serve.gate import GateState
 from .serve.ring import TelemetryRing
@@ -71,6 +73,17 @@ def to_scheduler_state(tree, *, seed: int, device) -> SchedulerState:
         step=_tensor(tree.step, device, torch.int32),
         generator=torch.Generator(device=device).manual_seed(int(seed)),
         live=None if live is None else _tensor(live, device),
+    )
+
+
+def to_dag_state(tree, *, seed: int, device) -> DagState:
+    """A JAX ``DagState`` of numpy leaves ((S, K, ...) posteriors) -> the
+    port's, with a fresh generator seeded from ``seed``."""
+    device = torch.device(device)
+    return DagState(
+        gibbs=to_gibbs_state(tree.gibbs, device),
+        step=_tensor(tree.step, device, torch.int32),
+        generator=torch.Generator(device=device).manual_seed(int(seed)),
     )
 
 

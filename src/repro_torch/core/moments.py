@@ -74,6 +74,44 @@ def log_posterior_grid(
     )
 
 
+def log_posterior_alpha_ref(
+    grid: Tensor,
+    t: Tensor,
+    f: Tensor,
+    mu: Tensor,
+    lam: Tensor,
+    beta: Tensor,
+    prior: BetaParams,
+    mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Unnormalized log p(alpha | T, F, mu, lambda, beta) on ``grid`` (Eq 10).
+
+    The alpha row of the plain K1 oracle.  Shapes: grid (G,), t/f (N,) ->
+    (G,); leading batch axes broadcast.
+    """
+    return log_posterior_grid(
+        grid, t, f, mu, lam, 0.5, beta, prior, BetaParams.default(device=t.device), mask,
+    )[..., 0, :]
+
+
+def log_posterior_beta_ref(
+    grid: Tensor,
+    t: Tensor,
+    f: Tensor,
+    mu: Tensor,
+    lam: Tensor,
+    alpha: Tensor,
+    prior: BetaParams,
+    mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Unnormalized log p(beta | T, F, mu, lambda, alpha) on ``grid`` (Eq 11),
+    with the -beta * sum(log f) Jacobian term of Eq 4: the beta row of the
+    plain K1 oracle."""
+    return log_posterior_grid(
+        grid, t, f, mu, lam, alpha, 0.5, BetaParams.default(device=t.device), prior, mask,
+    )[..., 1, :]
+
+
 def moments_from_log_density(grid: Tensor, logp: Tensor) -> Tuple[Tensor, Tensor]:
     """E and Var by numerical integration of a grid log-density (Eqs 16-18)."""
     pdf = normalize_log_density(logp, grid)

@@ -40,3 +40,14 @@ def no_sync(device):
         yield
     finally:
         torch.cuda.set_sync_debug_mode(previous)
+
+
+def host_constant(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A small constant known on the host (a number or a tuple of them) as a
+    tensor on ``device``.  On a card it is copied from pinned memory without
+    waiting, so it may be made under ``no_sync``."""
+    x = torch.tensor(values, dtype=dtype)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)

@@ -443,6 +443,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
                               kv_bf16, st);
   DECODE_CASE(10, 256)  // recurrentgemma-2b
   DECODE_CASE(8, 64)    // tinyllama-1.1b
+  DECODE_CASE(3, 64)    // smollm-135m (granite-moe-3b has the same pair)
   DECODE_CASE(4, 16)    // the reduced configurations of both
   DECODE_CASE(4, 64)    // the parity shapes of tests/test_kernels.py
   DECODE_CASE(1, 32)

@@ -29,9 +29,10 @@ _KERNEL = CudaKernel(
 )
 CHUNK = 64  # cache rows per block of the kernel's first pass (kChunk)
 # The (G, D) = (query heads per kv head, head dimension) pairs the kernel is
-# compiled for: recurrentgemma-2b, tinyllama-1.1b, the reduced configurations
-# of both, and the parity shapes of tests/test_kernels.py.
-INSTANTIATED = frozenset({(10, 256), (8, 64), (4, 16), (4, 64), (1, 32), (3, 16), (4, 32)})
+# compiled for: recurrentgemma-2b, tinyllama-1.1b, smollm-135m, the reduced
+# configurations of these, and the parity shapes of tests/test_kernels.py.
+INSTANTIATED = frozenset({(10, 256), (8, 64), (3, 64), (4, 16), (4, 64), (1, 32), (3, 16),
+                          (4, 32)})
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

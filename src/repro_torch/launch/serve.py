@@ -207,6 +207,7 @@ def main(argv=None):
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len}")
     print(f"prefill: {out['prefill_ms']:.1f} ms   decode: {out['decode_ms']:.1f} ms/token")
     print("generated token ids (seq 0):", out["tokens"][0].cpu().numpy())
+    return dict(out, cfg=cfg, params=params)  # a caller may run more steps on the cache
 
 
 if __name__ == "__main__":

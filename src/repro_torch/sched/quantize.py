@@ -20,7 +20,7 @@ from torch import Tensor
 
 from repro_torch.core.frontier import UnitParams
 
-from .objectives import Objective, evaluate
+from .objectives import Objective, as_stage_objectives, evaluate
 
 # Coarser quadrature than the continuous solver: the lattice steps are
 # O(1/total) so fine integration noise is irrelevant.
@@ -208,3 +208,51 @@ def quantize_fractions(
         max_moves=refine_passes * min(k, 4 * _REFINE_SLAB),
     )
     return refined.cpu().numpy().astype(np.int64)
+
+
+def quantize_dag_fractions(
+    fracs,
+    total_microbatches,
+    params: Optional[UnitParams] = None,
+    *,
+    objective: Objective = Objective(),
+    objectives=None,
+    min_per_worker: int = 1,
+    refine_passes: int = 4,
+    live: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Round (S, K) stage-wise fractions to per-stage integer counts.
+
+    Each stage's row quantizes on its own (the lattice couples workers
+    within a stage, never across stages), so this is a host loop of
+    ``quantize_fractions`` calls.  ``total_microbatches`` is an int shared
+    by every stage or one per stage; ``objectives`` optionally gives each
+    stage its own rounding objective (the spec ``propose_dag`` takes);
+    ``live`` is an (S, K) host mask (e.g. ``WorkflowDAG.stage_live()``)
+    giving dead pad columns exactly zero microbatches.  With ``params``
+    ((S, K) leaves) each row's refinement runs on their device.
+    """
+    fracs = np.asarray(fracs, np.float64)
+    if fracs.ndim != 2:
+        raise ValueError(f"expected (S, K) fractions, got shape {fracs.shape}")
+    s = fracs.shape[0]
+    objs = as_stage_objectives(objective if objectives is None else objectives, s)
+    if np.ndim(total_microbatches) == 0:
+        totals = [int(total_microbatches)] * s
+    else:
+        totals = [int(t) for t in total_microbatches]
+        if len(totals) != s:
+            raise ValueError("need one microbatch total per stage")
+    live = None if live is None else np.asarray(live, bool)
+    counts = np.zeros(fracs.shape, np.int64)
+    for i in range(s):
+        counts[i] = quantize_fractions(
+            fracs[i],
+            totals[i],
+            None if params is None else UnitParams(*(x[i] for x in params)),
+            objective=objs[i],
+            min_per_worker=min_per_worker,
+            refine_passes=refine_passes,
+            live=None if live is None else live[i],
+        )
+    return counts

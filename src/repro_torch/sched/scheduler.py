@@ -210,19 +210,21 @@ def _equalizing_fractions(params: UnitParams, live: Optional[Tensor] = None) -> 
     """Makespan-equalizing split: find tau with sum_k (tau/mu_k)^(1/alpha_k) = 1.
 
     50 bisection steps in log space (the sum is monotone in tau), each a
-    tensor ``where``: no step waits for the device.  ``live`` (a (K,) {0, 1}
-    mask) leaves dead slots out of the sum and gives them exactly 0.
+    tensor ``where``: no step waits for the device.  Rows (..., K) are
+    solved independently.  ``live`` (a {0, 1} mask of the same shape) leaves
+    dead slots out of the sum and gives them exactly 0.
     """
     mu = torch.clamp(params.mu, min=1e-6)
     alpha = torch.clamp(params.alpha, 0.05, 1.0)
     log_mu = torch.log(mu)
     lv = torch.ones_like(mu) if live is None else live.to(mu.dtype)
+    row_sum = lambda x: torch.sum(x, dim=-1, keepdim=True)
 
     def frac_sum(log_tau):
-        return torch.sum(lv * torch.exp(torch.clamp((log_tau - log_mu) / alpha, -60.0, 0.0)))
+        return row_sum(lv * torch.exp(torch.clamp((log_tau - log_mu) / alpha, -60.0, 0.0)))
 
     # At tau = max live mu: f_k >= 1 for the slowest live unit -> sum >= 1.
-    hi = torch.amax(torch.where(lv > 0, log_mu, -torch.inf))
+    hi = torch.amax(torch.where(lv > 0, log_mu, -torch.inf), dim=-1, keepdim=True)
     lo = hi - 60.0
     for _ in range(50):
         mid = 0.5 * (lo + hi)
@@ -230,7 +232,7 @@ def _equalizing_fractions(params: UnitParams, live: Optional[Tensor] = None) -> 
         lo, hi = torch.where(too_big, lo, mid), torch.where(too_big, mid, hi)
     log_tau = 0.5 * (lo + hi)
     f = lv * torch.exp(torch.clamp((log_tau - log_mu) / alpha, -60.0, 0.0))
-    return f / torch.clamp(torch.sum(f), min=1e-30)
+    return f / torch.clamp(row_sum(f), min=1e-30)
 
 
 def solve_fractions(
@@ -252,10 +254,18 @@ def solve_fractions(
     every worker at least one microbatch anyway, and telemetry at f -> 0
     carries unbounded weight f^(alpha-2beta) in the Normal-Gamma update.
     The Adam refinement takes ``torch.autograd.grad`` of the smooth
-    objective.  ``live`` (a (K,) {0, 1} capacity-slot mask) restricts the
-    solve to live workers: dead slots get exactly 0 (their logits are pinned
-    at -1e9 and the floor skips them), and their parked posteriors are never
-    consulted.  Returns (fractions, ProposeStats).
+    objective.  ``live`` (a {0, 1} capacity-slot mask shaped as ``params``)
+    restricts the solve to live workers: dead slots get exactly 0 (their
+    logits are pinned at -1e9 and the floor skips them), and their parked
+    posteriors are never consulted.
+
+    ``params`` leaves may be rows (S, K): then S independent solves run as
+    one, the way the reference vmaps one solve over a DAG's stages.  The
+    rows' losses are summed before the gradient and Adam is elementwise, so
+    each row takes exactly its own solve's steps; the best candidate is
+    picked per row, and ``risk_aversion`` / ``var_budget`` / ``deadline``
+    may be (S,) per-row overrides.  Returns (fractions, ProposeStats), the
+    stats (S,) for rows.
     """
     overrides = dict(risk_aversion=risk_aversion, var_budget=var_budget, deadline=deadline)
     params = UnitParams(*(x.detach() for x in params))
@@ -271,11 +281,11 @@ def solve_fractions(
         )
     pin = (lambda x: x) if live is None else (lambda x: torch.where(live > 0, x, -1e9))
     f_eq = _equalizing_fractions(params, live)
-    k = f_eq.shape[0]
+    k = f_eq.shape[-1]
     if live is None:
-        f_uni = torch.full((k,), 1.0 / k, dtype=f_eq.dtype, device=f_eq.device)
+        f_uni = torch.full(f_eq.shape, 1.0 / k, dtype=f_eq.dtype, device=f_eq.device)
     else:
-        f_uni = live.to(f_eq.dtype) / torch.clamp(torch.sum(live), min=1.0)
+        f_uni = live.to(f_eq.dtype) / torch.clamp(torch.sum(live, dim=-1, keepdim=True), min=1.0)
 
     logits = torch.log(torch.clamp(f_eq, min=1e-9))
     m = torch.zeros_like(logits)
@@ -287,6 +297,8 @@ def solve_fractions(
                 objective, torch.softmax(pin(x), dim=-1), params,
                 num_points=num_points, smooth=True, **overrides,
             )
+            if loss.ndim:  # rows: independent solves, one gradient
+                loss = torch.sum(loss)
             (g,) = torch.autograd.grad(loss, x)
             m = 0.9 * m + 0.1 * g
             v = 0.999 * v + 0.001 * g * g
@@ -296,17 +308,18 @@ def solve_fractions(
     f_ref = torch.softmax(pin(logits), dim=-1)
 
     # Safeguard: descent may only improve on the analytic candidates.
-    cands = torch.clamp(torch.stack([f_ref, f_eq, f_uni]), min=min_fraction)  # (3, K)
+    cands = torch.clamp(torch.stack([f_ref, f_eq, f_uni]), min=min_fraction)  # (3, ..., K)
     if live is not None:
         cands = torch.where(live > 0, cands, 0.0)
     cands = cands / torch.sum(cands, dim=-1, keepdim=True)
     scores = torch.stack(
         [evaluate(objective, c, params, num_points=num_points, **overrides) for c in cands]
-    )
-    best = torch.index_select(cands, 0, torch.argmin(scores).reshape(1))[0]
+    )  # (3, ...)
+    pick = torch.argmin(scores, dim=0)[None, ..., None].expand(1, *cands.shape[1:])
+    best = torch.gather(cands, 0, pick)[0]
 
     e_t, var = mean_var_completion(best, params, num_points)
-    return best, ProposeStats(e_t=e_t, var=var, score=torch.amin(scores))
+    return best, ProposeStats(e_t=e_t, var=var, score=torch.amin(scores, dim=0))
 
 
 def propose(

@@ -197,3 +197,41 @@ def test_even_median_is_the_mean_of_the_middle_pair():
     s = np.asarray([1.0, 2.0, 3.0, 4.0], np.float32)
     assert not bool(ts.flag_stragglers(torch.as_tensor(s), 1.05).any())
     assert not bool(np.asarray(js.flag_stragglers(jnp.asarray(s), 1.05)).any())
+
+
+@pytest.mark.parametrize("kind", ["mean", "mean_var", "var_budget", "deadline"])
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "live"])
+def test_row_batched_solve_equals_one_row_solves(kind, masked):
+    """solve_fractions on (S, K) rows, with (S,) per-row overrides and a
+    per-row live mask, is S one-row solves run as one (the DAG's stage
+    solves): each row's Adam steps are its own, as are its candidate pick
+    and its statistics.  Held to float32 evaluation order: fractions within
+    1e-6, E[t] and the score within 1e-5 relative, Var within 2e-6 E^2."""
+    rng = np.random.default_rng(17)
+    s, k = 4, 5
+    cols = [rng.uniform(2, 30, (s, k)), rng.uniform(0.2, 3, (s, k)),
+            rng.uniform(0.6, 0.95, (s, k)), rng.uniform(0.5, 0.9, (s, k))]
+    params = TUnit(*(torch.as_tensor(c.astype(np.float32)) for c in cols))
+    live = torch.as_tensor((rng.uniform(size=(s, k)) > 0.3).astype(np.float32)) if masked else None
+    if masked:
+        live[:, 0] = 1.0
+    per_row = torch.as_tensor([0.2, 1.0, 2.0, 0.5])
+    objective, overrides = {
+        "mean": (ts.Objective.mean(), {}),
+        "mean_var": (ts.Objective.mean_var(1.0), dict(risk_aversion=per_row)),
+        "var_budget": (ts.Objective.variance_budget(1.0), dict(var_budget=per_row)),
+        "deadline": (ts.Objective.deadline_quantile(5.0), dict(deadline=6.0 * per_row + 2.0)),
+    }[kind]
+    kw = dict(objective=objective, steps=30, num_points=128, min_fraction=1e-3)
+    fracs, stats = ts.solve_fractions(params, live=live, **kw, **overrides)
+    assert fracs.shape == (s, k) and stats.e_t.shape == (s,)
+    for i in range(s):
+        row = TUnit(*(x[i] for x in params))
+        f_i, st_i = ts.solve_fractions(row, live=None if live is None else live[i], **kw,
+                                       **{name: v[i] for name, v in overrides.items()})
+        np.testing.assert_allclose(fracs[i].numpy(), f_i.numpy(), atol=1e-6)
+        np.testing.assert_allclose(float(stats.e_t[i]), float(st_i.e_t), rtol=1e-5)
+        np.testing.assert_allclose(float(stats.score[i]), float(st_i.score), rtol=1e-5)
+        assert abs(float(stats.var[i]) - float(st_i.var)) <= 2e-6 * float(st_i.e_t) ** 2
+        if live is not None:
+            assert bool((fracs[i][live[i] == 0] == 0).all())

@@ -91,6 +91,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.launch, repro_torch.launch.serve\n"
         "import repro_torch.hier, repro_torch.serve, repro_torch.distributed\n"
         "import repro_torch.core.compress, repro_torch.configs.smollm_135m\n"
+        "import repro_torch.sim, repro_torch.sim.workflow, repro_torch.sched.dag\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -101,6 +102,82 @@ def test_port_imports_no_jax_and_no_reference():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+# Names of the reference's ``__all__`` that the port does not export yet,
+# each with the ROADMAP item (queue 1) that ports it.
+STILL_TO_PORT = {
+    "core": {"ShardingConfig": 10, "constrain_fleet": 10, "shard_fleet_map": 10,
+             "HeterogeneityAwarePartitioner": 11, "WorkerTelemetry": 11,
+             "optimize_fractions": 11, "quantize_fractions": 11},
+    "sched": {"ShardingConfig": 10},
+    "hier": {"fit_hyperprior_sharded": 10},
+    "distributed": {"ShardingConfig": 10},
+    "models": {"MeshInfo": 10, "ApplyCtx": 12, "encdec": 12, "moe": 12},
+    "configs": {"ALL_SHAPES": 13, "RunConfig": 13, "SHAPES": 13, "applicable": 13, "get_shape": 13},
+}
+# Pallas kernels and their oracle module, and the port's CUDA counterparts.
+KERNEL_COUNTERPARTS = {
+    "posterior_grid_fleet_pallas": "posterior_grid_cuda",
+    "posterior_grid_pallas": "posterior_grid_fleet",  # its slices: ops.posterior_grid_alpha/_beta
+    "decode_attention_pallas": "decode_attention_cuda",
+    "lru_scan_pallas": "lru_scan_cuda",
+    "ref": "posterior_grid_plain",  # its three oracles are the kernels' plain versions
+}
+
+
+@pytest.mark.parametrize("name", ["core", "sched", "sim", "hier", "serve", "kernels", "models",
+                                  "configs", "train", "distributed", "launch"])
+def test_port_exports_what_the_reference_exports(name):
+    """For every subpackage the port has, its ``__all__`` holds the
+    reference's, less the names still to port (each tagged with its ROADMAP
+    item), so a name cannot be dropped silently; every exported name
+    resolves."""
+    import importlib
+
+    ref = importlib.import_module(f"repro.{name}")
+    port = importlib.import_module(f"repro_torch.{name}")
+    want = set(getattr(ref, "__all__", ()))
+    have = set(getattr(port, "__all__", ()))
+    missing = want - have - set(STILL_TO_PORT.get(name, {}))
+    if name == "kernels":
+        assert {k for k in missing if k not in KERNEL_COUNTERPARTS} == set()
+        assert set(KERNEL_COUNTERPARTS.values()) <= have
+    else:
+        assert missing == set(), f"repro_torch.{name} lacks {sorted(missing)}"
+    assert not (set(STILL_TO_PORT.get(name, {})) & have), "ported: drop it from STILL_TO_PORT"
+    assert [n for n in have if not hasattr(port, n)] == []
+
+
+def test_core_exports_compression_and_dag_composition():
+    from repro_torch import core
+
+    for n in ("CompressionReport", "beta_moments", "compression_report", "fit_lognormal_moments",
+              "fit_surrogate", "grid_moments", "select_active", "surrogate_gap", "surrogate_moments",
+              "serial_moments", "parallel_max_moments", "dag_completion_moments"):
+        assert n in core.__all__ and hasattr(core, n)
+
+
+def test_single_mode_oracles_are_slices_of_the_reference_grid():
+    """core.log_posterior_alpha_ref / _beta_ref, the single-mode oracles of
+    K1, against the reference's at its kernel tolerance."""
+    from repro.core import moments as jm
+    from repro_torch.core import moments as tm
+    from test_torch_moments import assert_logp_close, fleet_case
+
+    c = fleet_case(3, 40, seed=5)
+    grid = np.linspace(1e-4, 1 - 1e-4, 33, dtype=np.float32)
+    J, T = jnp.asarray, torch.as_tensor
+    got = tm.log_posterior_alpha_ref(T(grid), T(c["t"]), T(c["f"]), T(c["mu"]), T(c["lam"]),
+                                     T(c["beta"]), tm.BetaParams(*map(T, c["ap"])), T(c["mask"]))
+    want = jm.log_posterior_alpha_ref(J(grid), J(c["t"]), J(c["f"]), J(c["mu"]), J(c["lam"]),
+                                      J(c["beta"]), jm.BetaParams(*map(J, c["ap"])), J(c["mask"]))
+    assert_logp_close(got.numpy(), want)
+    got = tm.log_posterior_beta_ref(T(grid), T(c["t"]), T(c["f"]), T(c["mu"]), T(c["lam"]),
+                                    T(c["alpha"]), tm.BetaParams(*map(T, c["bp"])), T(c["mask"]))
+    want = jm.log_posterior_beta_ref(J(grid), J(c["t"]), J(c["f"]), J(c["mu"]), J(c["lam"]),
+                                     J(c["alpha"]), jm.BetaParams(*map(J, c["bp"])), J(c["mask"]))
+    assert_logp_close(got.numpy(), want)
 
 
 def test_init_without_a_device_raises_on_a_cpu_machine():
