@@ -16,7 +16,8 @@ result lines:
      shapes, at the reference kernel tests' shapes and at the shapes the main
      paths give it: K1 in both its modes (mirrored and general), the
      service's slab (2048, 512, 8) and dense drain (100 000, 512, 8) among
-     them, K2 at every compiled (G, D) and with a sequence of length 0, K3
+     them, K2 at every compiled (G, D), with a sequence of length 0 and at
+     the decode shapes of phases 7b, 7c and 7d (arctic's (7, 128)), K3
      at the ragged edges
      of its tiling, with decays near 1 (where every chunk's carry shows) and
      from rows that are not 16-byte aligned, and K3's output bitwise the
@@ -25,7 +26,8 @@ result lines:
      CUDA-event-timed replays of a CUDA graph of repeated calls), its plain
      version's time, its bound, for K1 the general mode's time and the
      special-function floor, for K2 the time of
-     ``scaled_dot_product_attention`` on the same inputs, and for K3 the
+     ``scaled_dot_product_attention`` on the same inputs (also at phase 7d's
+     shape, under ``by_shape``), and for K3 the
      stream yardstick ``torch.add(a, x, out=h)``, which moves its bytes, and
      its time from rows that are not 16-byte aligned (plain loads, not TMA);
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
@@ -64,6 +66,19 @@ result lines:
      with SMOLLM_ARGV (batch 4, 512-token prompts, 16 tokens), after a
      2-token warm-up: K2 launches (30 per decode step, (G, D) = (3, 64)),
      tokens in range, finite logits;
+ 7c. the MoE family: granite-moe-3b-a800m at full width (32 layers, 40
+     experts top-8, 3.3 B bf16 parameters) through the same entry point
+     with GRANITE_ARGV, as 7b: K2 launches (32 per decode step at (3, 64)),
+     tokens in range, finite logits, prefill and decode times, peak memory;
+     then its cycle-0 MoE layer in float32 on 2048 tokens at the config's
+     capacity factor (tokens dropped) on the card against the CPU, expert
+     ids, positions and keep mask bitwise; and its teacher forcing at full
+     width in float32 with the capacity factor at E/k (dropless), as phase 8;
+ 7d. arctic-480b at full width (128 experts top-2 beside a dense residual
+     FFN, head dim 128) with its depth cut to 2 of 35 layers (27.2 GB of
+     bf16 weights a layer) through the same entry point with ARCTIC_ARGV:
+     one prefill of 4 x 128 tokens and 3 decode steps, K2 launches (2 per
+     decode step at (7, 128)), peak memory;
  10. partitioned serving at full width: ``repro_torch.launch.serve`` with
      PART_ARGV (recurrentgemma-2b, 16 rounds, 4 replicas, batch 16, 1024-token
      prompts, 16 tokens, a drain every 4 rounds, the drift gate at the
@@ -87,8 +102,9 @@ result lines:
      learned split against the uniform one on the simulator with common
      random numbers (asserted), the stochastic-aware against the
      deterministic-assumption split, the analytic composed moments against
-     the simulator, and ``examples/pipeline_dag_torch.py``'s diamond with
-     its two assertions.
+     the simulator, the move refinement once (one pass, its accepted moves,
+     moves run, device reads and ms a move), and
+     ``examples/pipeline_dag_torch.py``'s diamond with its two assertions.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -258,6 +274,21 @@ SMOLLM_BATCH, SMOLLM_PROMPT, SMOLLM_GEN = 4, 512, 16
 SMOLLM_ARGV = ["--arch", "smollm-135m", "--full", "--batch", str(SMOLLM_BATCH),
                "--prompt-len", str(SMOLLM_PROMPT), "--gen-len", str(SMOLLM_GEN)]
 K2_SMOLLM = (SMOLLM_BATCH, 9, 3, 64, SMOLLM_PROMPT + SMOLLM_GEN + 8)
+# granite-moe-3b-a800m at full width (phase 7c), as phase 7b: K2 at (B 4,
+# H 24, KVH 8, D 64, S); its teacher forcing in float32 without drops.
+GRANITE_ARCH, GRANITE_BATCH, GRANITE_PROMPT, GRANITE_GEN = "granite-moe-3b-a800m", 4, 512, 16
+GRANITE_ARGV = ["--arch", GRANITE_ARCH, "--full", "--batch", str(GRANITE_BATCH),
+                "--prompt-len", str(GRANITE_PROMPT), "--gen-len", str(GRANITE_GEN)]
+K2_GRANITE = (GRANITE_BATCH, 24, 8, 64, GRANITE_PROMPT + GRANITE_GEN + 8)
+MOE_TOKENS = 2048  # the full-width MoE layer held card against CPU
+GRANITE_TF_BATCH, GRANITE_TF_PREFILL = 2, 512
+# arctic-480b at full width (phase 7d) with its depth cut from 35 to
+# ARCTIC_LAYERS layers (27.2 GB of bf16 weights a layer on one 80 GB card):
+# one prefill, a few decode steps; K2 at (B 4, H 56, KVH 8, D 128, S).
+ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_BATCH, ARCTIC_PROMPT, ARCTIC_GEN = "arctic-480b", 2, 4, 128, 4
+ARCTIC_ARGV = ["--arch", ARCTIC_ARCH, "--full", "--batch", str(ARCTIC_BATCH),
+               "--prompt-len", str(ARCTIC_PROMPT), "--gen-len", str(ARCTIC_GEN)]
+K2_ARCTIC = (ARCTIC_BATCH, 56, 8, 128, ARCTIC_PROMPT + ARCTIC_GEN + 8)
 
 
 def decode_case(b, h, kvh, d, s, seed, q_dtype, kv_dtype, length=None):
@@ -315,6 +346,13 @@ def phase_k2_parity():
     s = K2_SMOLLM[-1]  # phase 7b's decode: lengths from the first step to the last, and S
     cases.append((K2_SMOLLM, bf16, f32, [SMOLLM_PROMPT + 1, SMOLLM_PROMPT + SMOLLM_GEN - 1, 520, s],
                   2e-2))
+    s = K2_GRANITE[-1]  # phase 7c's decode, (3, 64) at 8 kv heads
+    cases.append((K2_GRANITE, bf16, f32,
+                  [GRANITE_PROMPT + 1, GRANITE_PROMPT + GRANITE_GEN - 1, 520, s], 2e-2))
+    s = K2_ARCTIC[-1]  # phase 7d's decode, (7, 128), and its float32 form
+    for q_dt, tol in ((bf16, 2e-2), (f32, 2e-5)):
+        cases.append((K2_ARCTIC, q_dt, f32,
+                      [ARCTIC_PROMPT + 1, ARCTIC_PROMPT + ARCTIC_GEN - 1, ARCTIC_PROMPT + 2, s], tol))
     worst = 0.0
     for i, (shape, q_dt, kv_dt, length, tol) in enumerate(cases):
         args = decode_case(*shape, seed=100 + i, q_dtype=q_dt, kv_dtype=kv_dt, length=length)
@@ -491,18 +529,21 @@ def round_robin(fn, cases):
     return lambda: fn(*next(it))
 
 
-def phase_k2_timing():
-    """K2 at the serving path's decode shape, every cache row valid.  Calls
-    take four input sets in turn (67 MB, more than the 50 MB L2), so the cache
-    comes from device memory as in a decode step, where 25 other layers'
-    weights and caches pass through L2 between two visits of one layer."""
+def k2_timing(shape):
+    """K2 at one decode shape, every cache row valid.  Calls take input sets
+    in turn, at least four and together over 64 MB (more than the 50 MB L2), so
+    the cache comes from device memory as in a decode step, where the other
+    layers' weights and caches pass through L2 between two visits of one
+    layer."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 
-    b, h, kvh, d, s = K2_PATH
-    cases = [decode_case(*K2_PATH, seed=7 + i, q_dtype=torch.bfloat16, kv_dtype=torch.float32,
-                         length=[s] * b) for i in range(4)]
+    b, h, kvh, d, s = shape
+    per_set = 2 * b * s * kvh * d * 4 + 2 * b * h * d * 2  # float32 cache, bfloat16 q and out
+    n_sets = max(4, -(-64_000_000 // per_set))
+    cases = [decode_case(*shape, seed=7 + i, q_dtype=torch.bfloat16, kv_dtype=torch.float32,
+                         length=[s] * b) for i in range(n_sets)]
     ms = time_cuda(round_robin(decode_attention, cases), runs=30, reps=20)
     plain_ms = time_cuda(round_robin(decode_attention_plain, cases), runs=30, reps=20)
     # The library yardstick: SDPA on the same q, k, v (q in the cache's type,
@@ -519,11 +560,19 @@ def phase_k2_timing():
     ops = 4.0 * b * h * s * d
     nbytes = (q.numel() * 2 + 2 * k.numel() * 4 + length.numel() * 4 + q.numel() * 2)
     bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
-    say(f"[k2-time] (B, H, KVH, D, S)={K2_PATH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+    say(f"[k2-time] (B, H, KVH, D, S)={shape} ({n_sets} input sets): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
         f"({ops:.3e} ops, {nbytes:.3e} bytes)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
+
+
+def phase_k2_timing():
+    """K2 at the serving path's decode shape (the kernel's time in the
+    result line), and at arctic-480b's (phase 7d's, (G, D) = (7, 128)),
+    listed under ``by_shape``."""
+    main_path = k2_timing(K2_PATH)
+    return dict(main_path, by_shape={str(K2_ARCTIC): k2_timing(K2_ARCTIC)})
 
 
 def phase_k3_timing():
@@ -585,6 +634,7 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
     from repro_torch import kernels, sched
     from repro_torch.core.frontier import UnitParams
     from repro_torch.device import no_sync
+    from repro_torch.sched import quantize as refine
 
     total = 8 * k
     # The proposal floor matches quantization's one-microbatch floor.
@@ -626,8 +676,10 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
             return st, ll, fr, stats
 
         (state, ll, fracs, stats), ms_cycle = clock(observe_and_propose)
+        refine.reset_refine_stats()
         counts, ms_quant = clock(lambda: sched.quantize_fractions(
             fracs.cpu().numpy(), total, sched.unit_params(state), objective=config.objective))
+        moves = refine.refine_stats()
         if not bool(torch.isfinite(ll).all()):
             raise AssertionError("non-finite log-likelihood")
         if not (bool(torch.isfinite(fracs).all()) and abs(float(fracs.sum()) - 1.0) < 1e-4):
@@ -635,7 +687,8 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
         if counts.sum() != total or counts.min() < 1:
             raise AssertionError(f"counts sum {counts.sum()} != {total} or below the floor")
         say(f"[fleet] cycle {c}: observe+propose {ms_cycle:.1f} ms (sync-free), "
-            f"quantize {ms_quant:.1f} ms, E[t] {float(stats.e_t):.5f}")
+            f"quantize {ms_quant:.1f} ms ({moves['accepted']} moves accepted, "
+            f"{moves['evaluated']} run, {moves['reads']} device reads), E[t] {float(stats.e_t):.5f}")
     launches = kernels.launch_counts()
 
     # Separate timings of the two device stages on the final state.
@@ -705,44 +758,55 @@ def phase_serve():
     return launches
 
 
+def teacher_forcing(cfg, params, batch, prefill, steps, tag):
+    """Prefill ``prefill`` random tokens, then ``steps`` teacher-forced
+    decode steps, against ``forward_train``'s logits at the same positions
+    (TF_TOL).  Returns the worst |err|."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import ApplyCtx
+
+    total = prefill + steps
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, total)),
+                           dtype=torch.int32, device=params["embed"].device)
+    full, _ = model_zoo.forward_train(cfg, params, {"tokens": toks}, ctx=ApplyCtx(mode="train"))
+    want = full[:, prefill - 1:].clone()  # (B, 1 + steps, V)
+    del full
+    cache = model_zoo.init_cache(cfg, batch, total + 8, torch.float32)
+    got, cache = model_zoo.prefill(cfg, params, {"tokens": toks[:, :prefill]}, cache,
+                                   ctx=ApplyCtx(mode="prefill"))
+    outs = [got]
+    for j in range(prefill, total):
+        got, cache = model_zoo.decode_step(cfg, params, toks[:, j:j + 1], cache,
+                                           ctx=ApplyCtx(mode="decode"))
+        outs.append(got)
+    worst = 0.0
+    for i, got in enumerate(outs):
+        err = assert_close(got, want[:, i], **TF_TOL)
+        worst = max(worst, err)
+        what = "prefill" if i == 0 else f"decode step {i}"
+        say(f"[{tag}] {what} (position {prefill - 1 + i}): max|err| {err:.3e} against "
+            f"forward_train, max|logit| {float(want[:, i].abs().max()):.3f}")
+    return worst
+
+
 def phase_teacher_forcing():
     """Prefill past the window, then teacher-forced decode steps, against the
     full-sequence forward, all at full width in float32."""
-    import numpy as np
-    import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import model_zoo
-    from repro_torch.models.layers import ApplyCtx
     from repro_torch.models.params import tree_map
 
     cfg = get_arch(SERVE_ARCH)
     params = tree_map(lambda t: t.float(), model_zoo.init_model_params(cfg, seed=0))
-    total = TF_PREFILL + TF_STEPS
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (TF_BATCH, total)),
-                           dtype=torch.int32, device=params["embed"].device)
-    full, _ = model_zoo.forward_train(cfg, params, {"tokens": toks}, ctx=ApplyCtx(mode="train"))
-    want = full[:, TF_PREFILL - 1:].clone()  # (B, 1 + steps, V)
-    del full
-    cache = model_zoo.init_cache(cfg, TF_BATCH, total + 8, torch.float32)
-    got, cache = model_zoo.prefill(cfg, params, {"tokens": toks[:, :TF_PREFILL]}, cache,
-                                   ctx=ApplyCtx(mode="prefill"))
-    steps = [got]
-    for j in range(TF_PREFILL, total):
-        got, cache = model_zoo.decode_step(cfg, params, toks[:, j:j + 1], cache,
-                                           ctx=ApplyCtx(mode="decode"))
-        steps.append(got)
-    worst = 0.0
-    for i, got in enumerate(steps):
-        err = assert_close(got, want[:, i], **TF_TOL)
-        worst = max(worst, err)
-        what = "prefill" if i == 0 else f"decode step {i}"
-        say(f"[teacher] {what} (position {TF_PREFILL - 1 + i}): max|err| {err:.3e} against "
-            f"forward_train, max|logit| {float(want[:, i].abs().max()):.3f}")
+    worst = teacher_forcing(cfg, params, TF_BATCH, TF_PREFILL, TF_STEPS, "teacher")
     say(f"[teacher] {cfg.name} float32, batch {TF_BATCH}, prefill {TF_PREFILL} > window "
         f"{cfg.local_window}, {TF_STEPS} decode steps: within rtol {TF_TOL['rtol']} "
         f"atol {TF_TOL['atol']}, worst {worst:.3e}")
     return worst
+
 
 def leaves(tree):
     """The tensors of a nested NamedTuple state, in order."""
@@ -1151,34 +1215,175 @@ def phase_partitioned_parity(result, cfg):
     return errs
 
 
-def phase_serve_smollm():
-    """Phase 7b: smollm-135m at full width through the serving CLI's entry
-    point; K2 at (G, D) = (3, 64) once per layer of every decode step."""
+def serve_cli(tag, argv, batch, gen, *, warm_up=True):
+    """Serve through ``python -m repro_torch.launch.serve``'s entry point in
+    this process (after a 2-token run at the same shapes with ``warm_up``),
+    the launch counts set to 0 just before the timed run and read just
+    after; one more decode step on its cache.  Checks the tokens' shape and
+    range and finite logits; returns (launches, the run's result, peak
+    device memory in bytes)."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model_zoo
     from repro_torch.models.layers import ApplyCtx
 
-    launch_serve.main(SMOLLM_ARGV + ["--gen-len", "2"])  # set-up at the same shapes
+    if warm_up:
+        launch_serve.main(argv + ["--gen-len", "2"])  # set-up at the same shapes
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    out = launch_serve.main(SMOLLM_ARGV)
+    out = launch_serve.main(argv)
     launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     cfg, tokens = out["cfg"], out["tokens"]
     logits, _ = model_zoo.decode_step(cfg, out["params"], tokens[:, -1:], out["cache"],
                                       ctx=ApplyCtx(mode="decode"))
-    if logits.shape != (SMOLLM_BATCH, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"logits {tuple(logits.shape)} not finite or misshapen")
-    if tokens.shape != (SMOLLM_BATCH, SMOLLM_GEN) or not bool(
+    if logits.shape != (batch, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[{tag}] logits {tuple(logits.shape)} not finite or misshapen")
+    if tokens.shape != (batch, gen) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
-        raise AssertionError(f"generated tokens {tuple(tokens.shape)} out of shape or range")
-    want = cfg.num_layers * (SMOLLM_GEN - 1)
+        raise AssertionError(f"[{tag}] generated tokens {tuple(tokens.shape)} out of shape or range")
+    want = cfg.num_layers * (gen - 1)  # every layer attends in every decode step
     if launches.get("decode_attention") != want:
-        raise AssertionError(f"K2 launched {launches} times serving smollm-135m, not {want}")
-    say(f"[smollm] {' '.join(SMOLLM_ARGV)}: {cfg.num_layers} layers, (G, D) = "
+        raise AssertionError(f"[{tag}] K2 launched {launches} times, not {want}")
+    say(f"[{tag}] {' '.join(argv)}: {cfg.num_layers} layers, (G, D) = "
         f"({cfg.num_heads // cfg.num_kv_heads}, {cfg.resolved_head_dim}); prefill "
-        f"{out['prefill_ms']:.1f} ms, decode {out['decode_ms']:.2f} ms/token, logits finite")
-    say(f"[smollm] launches on the main path: {launches}")
+        f"{out['prefill_ms']:.1f} ms, decode {out['decode_ms']:.2f} ms/token, peak device memory "
+        f"{peak / 2**30:.2f} GiB, logits finite")
+    say(f"[{tag}] launches on the main path: {launches}")
+    return launches, out, peak
+
+
+def phase_serve_smollm():
+    """Phase 7b: smollm-135m at full width through the serving CLI's entry
+    point; K2 at (G, D) = (3, 64) once per layer of every decode step."""
+    launches, _, _ = serve_cli("smollm", SMOLLM_ARGV, SMOLLM_BATCH, SMOLLM_GEN)
+    return launches
+
+
+def phase_serve_granite():
+    """Phase 7c: granite-moe-3b-a800m at full width through the serving
+    CLI's entry point, at the config's capacity factor (1.25: a decode
+    step's 4 tokens get one row of each of 40 experts, and most of their 8
+    slots are dropped, as in the reference); K2 at (3, 64) 32 times a
+    decode step.  Returns the launches and cycle 0's MoE parameters, in
+    float32 on the host."""
+    from repro_torch.models import model_zoo
+
+    launches, out, _ = serve_cli("granite", GRANITE_ARGV, GRANITE_BATCH, GRANITE_GEN)
+    cfg = out["cfg"]
+    say(f"[granite] {cfg.name}: {model_zoo.param_count(cfg) / 1e9:.3f} B parameters in "
+        f"{cfg.dtype} ({model_zoo.param_count(cfg, active_only=True) / 1e9:.3f} B active a "
+        f"token), {cfg.num_experts} experts top-{cfg.experts_per_token}, capacity factor "
+        f"{cfg.capacity_factor}")
+    ffn = {name: t[0].float().cpu() for name, t in out["params"]["cycles"][0]["ffn"].items()}
+    return launches, ffn
+
+
+def check_moe_layer_parity(ffn):
+    """granite's cycle-0 MoE layer at full width, its weights in float32, on
+    MOE_TOKENS tokens at the config's capacity factor, on the card against
+    the same layer on the CPU: expert ids, positions and the keep mask
+    bitwise, the output within rtol 1e-4, atol 1e-4.
+
+    The tokens (integers in [-3, 3], plus one shared integer vector that
+    favours some experts, so that those overflow and drop) and the router
+    (rounded to multiples of 2^-12) lie on a lattice where every partial sum
+    of the router's product is exact in float32: both devices see the same
+    logits, so the check holds the card's top-k order and scatter, not its
+    matmul rounding.  Equal logits tie on both and go to the lower expert."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    cfg = get_arch(GRANITE_ARCH)
+    rng = np.random.default_rng(11)
+    shared = rng.integers(-2, 3, (1, cfg.d_model))
+    x = torch.as_tensor(np.clip(rng.integers(-3, 4, (MOE_TOKENS, cfg.d_model)) + shared, -3, 3),
+                        dtype=torch.float32)
+    params = dict(ffn, router=torch.round(ffn["router"] * 2**12) / 2**12)
+    cap = moe._capacity(MOE_TOKENS, cfg)
+    results = {}
+    for device in ("cuda", "cpu"):
+        p = {name: t.to(device) for name, t in params.items()}
+        xd = x.to(device)
+        _, gates, experts = moe._route(cfg, p["router"], xd)
+        _, e_ids, pos, keep = moe._dispatch_local(xd, gates, experts, cfg.num_experts, cap)
+        y, _ = moe.moe_ffn(cfg, p, xd[None])
+        results[device] = [t.cpu() for t in (e_ids, pos, keep, y[0])]
+    card, host = results["cuda"], results["cpu"]
+    for name, got, want in zip(("expert ids", "positions", "keep mask"), card[:3], host[:3]):
+        if not torch.equal(got, want):
+            raise AssertionError(f"[moe-layer] {name} differ between the card and the CPU in "
+                                 f"{int((got != want).sum())} places")
+    err = assert_close(card[3], host[3], rtol=1e-4, atol=1e-4)
+    keep = host[2]
+    say(f"[moe-layer] {cfg.name} cycle-0 MoE layer, float32, {MOE_TOKENS} tokens, capacity "
+        f"{cap} a expert (factor {cfg.capacity_factor}): {int((~keep).sum())} of {keep.numel()} "
+        f"(token, slot) pairs dropped; expert ids, positions and keep mask bitwise equal on the "
+        f"card and the CPU; output max|err| {err:.3e} within rtol 1e-4, atol 1e-4 (max|y| "
+        f"{float(host[3].abs().max()):.3f})")
+    if not bool((~keep).any()):
+        raise AssertionError("[moe-layer] no token was dropped: the check would not see drops")
+    return err
+
+
+def phase_teacher_forcing_granite():
+    """granite-moe-3b-a800m at full width in float32, the capacity factor at
+    E / k (dropless in every mode: capacity is then the call's token count),
+    prefill then teacher-forced decode steps against the full forward.  At
+    the config's 1.25 a decode step drops tokens that the full forward
+    keeps, by design (GShard), so the two would differ."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_zoo
+
+    base = get_arch(GRANITE_ARCH)
+    cfg = dataclasses.replace(base, dtype="float32",
+                              capacity_factor=base.num_experts / base.experts_per_token)
+    params = model_zoo.init_model_params(cfg, seed=0)
+    worst = teacher_forcing(cfg, params, GRANITE_TF_BATCH, GRANITE_TF_PREFILL, TF_STEPS,
+                            "moe-teacher")
+    say(f"[moe-teacher] {cfg.name} float32, capacity factor E/k = {cfg.capacity_factor:g} "
+        f"(dropless; the config's {base.capacity_factor} drops decode tokens by design), batch "
+        f"{GRANITE_TF_BATCH}, prefill {GRANITE_TF_PREFILL}, {TF_STEPS} decode steps: within rtol "
+        f"{TF_TOL['rtol']} atol {TF_TOL['atol']}, worst {worst:.3e}")
+    return worst
+
+
+def phase_serve_arctic():
+    """Phase 7d: arctic-480b at full width (d_model 7168, 128 experts top-2
+    and the dense residual FFN) with its depth cut to ARCTIC_LAYERS of 35,
+    through the serving CLI's entry point: the cut goes through the
+    registry's config, for this phase only.  One prefill and ARCTIC_GEN - 1
+    decode steps, no warm-up (one run of 55 GB of weights is enough);
+    K2 at (7, 128)."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model_zoo
+
+    full = configs.ARCHS[ARCTIC_ARCH]
+    cut = dataclasses.replace(full, num_layers=ARCTIC_LAYERS)
+    torch.cuda.empty_cache()
+    configs.ARCHS[ARCTIC_ARCH] = cut
+    try:
+        t0 = time.perf_counter()
+        launches, out, peak = serve_cli("arctic", ARCTIC_ARGV, ARCTIC_BATCH, ARCTIC_GEN,
+                                        warm_up=False)
+        seconds = time.perf_counter() - t0
+    finally:
+        configs.ARCHS[ARCTIC_ARCH] = full
+    n = model_zoo.param_count(cut)
+    say(f"[arctic] {cut.name} at full width, {ARCTIC_LAYERS} of {full.num_layers} layers: "
+        f"{n / 1e9:.3f} B parameters in {cut.dtype} ({n * 2 / 1e9:.1f} GB; the whole model "
+        f"{model_zoo.param_count(full) / 1e9:.1f} B), peak device memory {peak / 2**30:.2f} GiB, "
+        f"{seconds:.1f} s with initialisation")
+    del out
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1261,6 +1466,7 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
     import pipeline_dag_torch
     from repro_torch import kernels, sched, sim
     from repro_torch.device import no_sync
+    from repro_torch.sched import quantize as refine
 
     on_card = device != "cpu"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -1287,8 +1493,8 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
     # Each stage is rounded to 8K microbatches by largest remainder, without
     # the objective's move refinement: an end-to-end variance budget gives
     # no per-stage objective to refine against, and refining each stage on
-    # E[t] walked 512 moves a stage away from the budgeted split, at ~37 ms
-    # a move on an H100 (PERF.md).  The refinement runs once below.
+    # E[t] walked 512 moves a stage away from the budgeted split (PERF.md).
+    # The refinement runs once below.
     total = 8 * k
     gen = torch.Generator(device=device).manual_seed(2017)
 
@@ -1348,14 +1554,18 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
         f_sto.cpu().numpy(), total, live=live_np))
     # The move refinement (quantize_fractions(params=)) at this width, once,
     # as a yardstick: one pass, at most 128 moves a stage, one device read a
-    # move; each stage refines its own E[t] under the truth.
+    # block of moves; each stage refines its own E[t] under the truth.
+    refine.reset_refine_stats()
     refined, ms_refine = clock(lambda: sched.quantize_dag_fractions(
         f_sto.cpu().numpy(), total, truth, refine_passes=1, live=live_np))
+    refine_moves = refine.refine_stats()
     if not ((refined.sum(-1) == total).all() and (refined[~live_np] == 0).all()
             and (refined[live_np] >= 1).all()):
         raise AssertionError(f"refined counts {refined.sum(-1)} per stage, not {total}, or a "
                              f"dead column got work")
-    moves = int(np.abs(refined - rounded).sum()) // 2  # each move shifts one microbatch
+    moves = refine_moves["accepted"]
+    if moves < int(np.abs(refined - rounded).sum()) // 2:  # each move shifts one microbatch
+        raise AssertionError(f"{moves} accepted moves cannot give counts that far apart")
     # Quality at the true parameters: one sampled world for every split.
     price = lambda f: sim.simulate_workflow(7, sto, f, truth, num_samples=mc, device=device)
     t_sto, ms_sim = clock(lambda: price(f_sto))
@@ -1380,8 +1590,11 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
         f"quantize_dag_fractions {ms_quant:.1f} ms, simulate_workflow ({len(t_sto)} samples) "
         f"{ms_sim:.1f} ms, peak device memory {peak / 2**20:.1f} MiB")
     say(f"[dag] quantize_dag_fractions with the move refinement (params=, one pass): "
-        f"{ms_refine:.1f} ms for at least {moves} moves over 8 stages"
-        f"{f', {ms_refine / moves:.2f} ms a move at most' if moves else ''}")
+        f"{ms_refine:.1f} ms for {moves} accepted moves over 8 stages "
+        f"({refine_moves['evaluated']} run in blocks of {refine._MOVES_PER_READ}, "
+        f"{refine_moves['reads']} device reads)"
+        f"{f', {ms_refine / moves:.2f} ms an accepted move' if moves else ''}"
+        f", {ms_refine / max(refine_moves['evaluated'], 1):.2f} ms a move run")
     say(f"[dag] E[t] on the simulator under the truth (common random numbers, {len(t_sto)} "
         f"samples): learned {e_sto:.5f}, uniform {e_uni:.5f} (uniform - learned {float(d_uni.mean()):.5f}"
         f" +- {se(d_uni):.5f} s.e.), deterministic-assumption {e_det:.5f} (minus the "
@@ -1447,6 +1660,11 @@ def main() -> int:
             raise AssertionError(f"{name} launched {serve_launches.get(name)} times in serving, not {n}")
     phase_teacher_forcing()
     smollm_launches = phase_serve_smollm()
+    granite_launches, granite_ffn = phase_serve_granite()
+    check_moe_layer_parity(granite_ffn)
+    del granite_ffn
+    phase_teacher_forcing_granite()
+    arctic_launches = phase_serve_arctic()
     service_launches, _ = phase_service()
     drives = 2 * (1 + SVC_TICKS)  # dense and active loops, a warm-up tick and the timed ones
     if service_launches.get("posterior_grid_fleet") != SWEEPS * drives:
@@ -1469,6 +1687,7 @@ def main() -> int:
     if dag_launches.get("posterior_grid_fleet") != SWEEPS * CYCLES:  # 20 per observe_dag
         raise AssertionError(f"K1 launched {dag_launches} times on the DAG path, not {SWEEPS * CYCLES}")
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
+                   serve_granite=granite_launches, serve_arctic=arctic_launches,
                    service=service_launches, partitioned=part_launches, dag=dag_launches)
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),

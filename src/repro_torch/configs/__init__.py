@@ -1,18 +1,19 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 Only the architectures whose block kinds the port runs are registered (the
-dense and hybrid families); the reference's other archs wait for their
+dense, hybrid and MoE families); the reference's other archs wait for their
 families to be ported.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import recurrentgemma_2b, smollm_135m, tinyllama_1_1b
+from . import arctic_480b, granite_moe_3b, recurrentgemma_2b, smollm_135m, tinyllama_1_1b
 from .base import ModelConfig, ShapeConfig, reduced
 
 ARCHS: Dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (tinyllama_1_1b, recurrentgemma_2b, smollm_135m)
+    m.CONFIG.name: m.CONFIG
+    for m in (tinyllama_1_1b, recurrentgemma_2b, smollm_135m, granite_moe_3b, arctic_480b)
 }
 
 

@@ -1,5 +1,5 @@
-"""The model stack of the port: the dense and hybrid (RG-LRU + local
-attention) families, for serving."""
-from . import layers, model_zoo, params, recurrent, transformer
+"""The model stack of the port: the dense, hybrid (RG-LRU + local
+attention) and MoE families, for serving."""
+from . import layers, model_zoo, moe, params, recurrent, transformer
 
-__all__ = ["layers", "model_zoo", "params", "recurrent", "transformer"]
+__all__ = ["layers", "model_zoo", "moe", "params", "recurrent", "transformer"]

@@ -1,12 +1,13 @@
 """Model zoo: config -> spec, parameters, apply, and parameter counts.
 
 The port's counterpart of ``repro.models.model_zoo`` for the decoder-only
-families it runs (dense and hybrid).  ``init_model_params`` and
+families it runs (dense, hybrid and MoE).  ``init_model_params`` and
 ``init_cache`` are entry points: they run on the card unless a device is
 named.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -16,7 +17,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import transformer
 from .layers import ApplyCtx
-from .params import init_params, param_count as spec_param_count
+from .params import init_params, leaves, param_count as spec_param_count
 
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
@@ -35,9 +36,18 @@ def init_model_params(cfg: ModelConfig, *, seed: int, device=None):
     return init_params(model_spec(cfg), gen, model_dtype(cfg), device)
 
 
-def param_count(cfg: ModelConfig) -> int:
-    """Exact parameter count from the spec tree."""
-    return spec_param_count(model_spec(cfg))
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the spec tree.
+
+    active_only: count each MoE expert tensor at k/E of its size (the
+    parameters one token uses), as the reference does.
+    """
+    spec = model_spec(cfg)
+    if not active_only or cfg.num_experts == 0:
+        return spec_param_count(spec)
+    frac = cfg.experts_per_token / cfg.num_experts
+    return int(sum(math.prod(p.shape) * (frac if "experts" in p.axes else 1)
+                   for p in leaves(spec)))
 
 
 def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor], *, ctx: ApplyCtx):

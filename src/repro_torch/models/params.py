@@ -48,19 +48,35 @@ def stack_spec(spec: SpecTree, n: int, axis_name: str = "layers") -> SpecTree:
     return tree_map(lambda p: p.stacked(n, axis_name), spec)
 
 
+# Elements of one float32 draw: a larger leaf (arctic-480b's stacked
+# experts, 4.5e9 elements a layer) is drawn in pieces of this size, so the
+# draw needs 4 GiB beside the leaf, not four bytes an element.
+_DRAW_CHUNK = 2**30
+
+
 def init_params(spec: SpecTree, generator: torch.Generator, dtype=torch.float32,
                 device=None) -> ParamTree:
     """Materialise a spec: normal(0, scale) leaves drawn from ``generator`` in
-    float32 on ``device`` (the generator's device), then cast to ``dtype``."""
+    float32 on ``device`` (the generator's device), then cast to ``dtype``;
+    leaves over ``_DRAW_CHUNK`` elements are drawn piece by piece in order."""
     device = generator.device if device is None else torch.device(device)
+
+    def draw(shape) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
 
     def make(p: P) -> torch.Tensor:
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dtype, device=device)
         if p.init == "ones":
             return torch.ones(p.shape, dtype=dtype, device=device)
-        x = torch.randn(p.shape, generator=generator, device=device, dtype=torch.float32)
-        return x.mul_(p.scale).to(dtype)
+        n = math.prod(p.shape)
+        if n <= _DRAW_CHUNK:
+            return draw(p.shape).mul_(p.scale).to(dtype)
+        out = torch.empty(n, dtype=dtype, device=device)
+        for i in range(0, n, _DRAW_CHUNK):
+            piece = out[i:i + _DRAW_CHUNK]
+            piece.copy_(draw(piece.shape).mul_(p.scale))
+        return out.view(p.shape)
 
     return tree_map(make, spec)
 

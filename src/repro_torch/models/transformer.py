@@ -1,7 +1,7 @@
 """LM assembly: embed -> layer-pattern cycles -> norm -> head.
 
-The port's counterpart of ``repro.models.transformer`` for the dense and
-hybrid (RG-LRU + local attention) families.  Parameters and caches keep the
+The port's counterpart of ``repro.models.transformer`` for the dense,
+hybrid (RG-LRU + local attention) and MoE families.  Parameters and caches keep the
 reference's layout: one stacked tree per pattern position with a leading
 ``n_cycles`` axis, plus the unrolled remainder layers.  The layer loop is a
 Python loop over cycles; caches are written in place through views of the
@@ -16,6 +16,7 @@ import torch
 from torch import Tensor
 
 from ..configs.base import ModelConfig
+from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (
     ApplyCtx,
@@ -29,7 +30,7 @@ from .layers import (
 )
 from .params import P, stack_spec, tree_map
 
-PORTED_KINDS = ("dense", "localattn", "rglru")
+PORTED_KINDS = ("dense", "moe", "localattn", "rglru")
 
 
 def _check_kind(kind: str) -> None:
@@ -49,7 +50,10 @@ def block_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         spec = {"ln1": rmsnorm_spec(d), "mix": rec.rglru_spec(cfg)}
     else:
         spec = {"ln1": rmsnorm_spec(d), "attn": attention_spec(cfg)}
-    if cfg.d_ff > 0:
+    if kind == "moe":
+        spec["ln2"] = rmsnorm_spec(d)
+        spec["ffn"] = moe_lib.moe_spec(cfg)
+    elif cfg.d_ff > 0:
         spec["ln2"] = rmsnorm_spec(d)
         spec["ffn"] = mlp_spec(cfg)
     return spec
@@ -74,8 +78,10 @@ def block_apply(
     positions: Tensor,
     length: Optional[Tensor],
     cache: Optional[Dict[str, Tensor]],
-) -> Tensor:
-    """One block; its cache, if any, is updated in place."""
+) -> Tuple[Tensor, Optional[Tensor]]:
+    """One block; its cache, if any, is updated in place.  Returns (x, aux):
+    an MoE block's load-balance loss in train mode, else None (prefill and
+    decode discard it, as the reference's jitted calls drop it)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rglru":
         y, _ = rec.rglru_block(cfg, params["mix"], h, ctx=ctx, cache=cache)
@@ -84,9 +90,17 @@ def block_apply(
         y, _ = attention(cfg, params["attn"], h, ctx=ctx, window=window,
                          positions=positions, length=length, cache=cache)
     x = x + y
+    aux = None
     if "ffn" in params:
-        x = x + mlp(cfg, params["ffn"], rmsnorm(params["ln2"], x, cfg.norm_eps))
-    return x
+        h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+        if kind == "moe":
+            y, probs = moe_lib.moe_ffn(cfg, params["ffn"], h)
+            if ctx.mode == "train":
+                aux = moe_lib.load_balance_loss(cfg, probs)
+        else:
+            y = mlp(cfg, params["ffn"], h)
+        x = x + y
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +114,9 @@ def _cycles_and_rest(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
 
 
 def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.vision_patches or cfg.use_bias or cfg.family not in ("dense", "hybrid"):
-        raise ValueError(f"{cfg.name}: only the dense and hybrid families, without biases, "
-                         f"are ported")
+    if cfg.vision_patches or cfg.use_bias or cfg.family not in ("dense", "hybrid", "moe"):
+        raise ValueError(f"{cfg.name}: only the dense, hybrid and MoE families, without "
+                         f"biases, are ported")
     d, v = cfg.d_model, cfg.vocab_size
     n_cycles, rest = _cycles_and_rest(cfg)
     spec: Dict[str, Any] = {
@@ -144,17 +158,21 @@ def _at(tree, i: int):
 
 
 def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions: Tensor,
-               length: Optional[Tensor], cache: Optional[Dict[str, Any]]) -> Tensor:
-    """The layer loop: every cycle of the pattern, then the remainder."""
+               length: Optional[Tensor], cache: Optional[Dict[str, Any]]) -> Tuple[Tensor, Tensor]:
+    """The layer loop: every cycle of the pattern, then the remainder.
+    Returns (x, the sum of the blocks' aux losses)."""
     n_cycles, rest = _cycles_and_rest(cfg)
     use = cache is not None
     layers = [
         (kind, _at(params["cycles"][j], i), _at(cache["cycles"][j], i) if use else None)
         for i in range(n_cycles) for j, kind in enumerate(cfg.pattern)
     ] + [(kind, params["rest"][j], cache["rest"][j] if use else None) for j, kind in enumerate(rest)]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, c in layers:
-        x = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length, cache=c)
-    return x
+        x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length, cache=c)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict[str, Any]:
@@ -175,12 +193,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dic
 @torch.no_grad()
 def forward_train(cfg: ModelConfig, params, tokens: Tensor, *,
                   ctx: ApplyCtx) -> Tuple[Tensor, Tensor]:
-    """Full-sequence forward (no gradient yet).  Returns (logits (B,T,V), aux)."""
+    """Full-sequence forward (no gradient yet).  Returns (logits (B,T,V), aux),
+    aux the sum of the MoE blocks' load-balance losses (0 without any)."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None)
+    x, aux = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _head(cfg, params, x), torch.zeros((), device=x.device)
+    return _head(cfg, params, x), aux
 
 
 @torch.no_grad()
@@ -190,7 +209,7 @@ def prefill(cfg: ModelConfig, params, tokens: Tensor, cache: Dict[str, Any], *,
     x = _embed(cfg, params, tokens)
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)
-    x = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=cache)
+    x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=cache)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     cache["length"].fill_(t)
     return _head(cfg, params, x)[:, 0], cache
@@ -203,8 +222,8 @@ def decode_step(cfg: ModelConfig, params, token: Tensor, cache: Dict[str, Any], 
     (logits (B, V), cache)."""
     length = cache["length"]
     x = _embed(cfg, params, token)
-    x = _run_stack(cfg, params, x, ctx=ctx, positions=length.reshape(1), length=length,
-                   cache=cache)
+    x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=length.reshape(1), length=length,
+                      cache=cache)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _head(cfg, params, x)[:, 0]
     length.add_(1)

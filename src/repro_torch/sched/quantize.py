@@ -7,8 +7,10 @@ donor->receiver single-microbatch moves, each scored under the true
 objective on the device of ``params``.  Beyond ``_REFINE_SLAB`` workers the
 moves are restricted to the top-M donors and receivers ranked by the smooth
 objective's gradient, so a move costs O(M^2) evaluations, not O(K^2).
-Donors are swept one at a time, so at most M (or K) candidate vectors are
-scored at once.
+All candidates of a move are scored in one batched call (in donor chunks
+where their quadrature would outgrow ``_SWEEP_BYTES``), and the moves run in
+blocks with one device read a block, as the reference runs them in one
+``lax.while_loop``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,15 @@ _REFINE_QUAD_POINTS = 192
 # Fleets larger than this use gradient-ranked donor/receiver slabs; at or
 # under it the move sweep is exhaustive.
 _REFINE_SLAB = 32
+
+# Moves between two reads of the device's done flag.  The moves after the
+# stop change nothing and are wasted, half a block a call on average; a read
+# drains the card's queue once.
+_MOVES_PER_READ = 8
+
+# The largest (candidates, points, K) float32 intermediate of one move sweep,
+# in bytes: donors are scored in chunks that stay within it.
+_SWEEP_BYTES = 256 * 2**20
 
 
 def _water_fill(priority: np.ndarray, cap: np.ndarray, need: int) -> np.ndarray:
@@ -63,6 +74,29 @@ def _water_fill(priority: np.ndarray, cap: np.ndarray, need: int) -> np.ndarray:
     return taken
 
 
+def _to_host(*xs: Tensor):
+    """The refinement's only way to the host: every read of the device that
+    ``_refine_counts`` makes is one call of this function (one wait for the
+    card).  Counted in ``refine_stats()["reads"]``."""
+    _STATS["reads"] += 1
+    return tuple(x.cpu() for x in xs)
+
+
+def refine_stats() -> dict:
+    """Since the last ``reset_refine_stats()``: ``calls`` of the move
+    refinement, moves it ``evaluated`` (whole blocks, the moves after the
+    stop included), moves it ``accepted``, and its device ``reads``."""
+    return dict(_STATS)
+
+
+def reset_refine_stats() -> None:
+    _STATS.update(calls=0, evaluated=0, accepted=0, reads=0)
+
+
+_STATS: dict = {}
+reset_refine_stats()
+
+
 def _refine_counts(
     counts: Tensor,
     params: UnitParams,
@@ -73,19 +107,29 @@ def _refine_counts(
     max_moves: int,
     slab: int = _REFINE_SLAB,
 ) -> Tensor:
-    """Greedy best-move descent on the count lattice.
+    """Greedy best-move descent on the count lattice, on ``params``' device.
 
-    Each iteration scores single-microbatch donor->receiver moves and applies
-    the best strictly-improving one; it stops when none improves (one host
-    read per move) or after ``max_moves``.  At K <= slab all K*K moves are
-    scored; larger fleets score only the slab x slab block of the donors
-    with the highest and the receivers with the lowest smooth-objective
-    gradient, and still accept a move only on the true objective.
+    Each move scores single-microbatch donor->receiver moves and applies the
+    best strictly-improving one; the descent stops when none improves or
+    after ``max_moves``.  At K <= slab all K*K moves are scored; larger
+    fleets score only the slab x slab block of the donors with the highest
+    and the receivers with the lowest smooth-objective gradient, and still
+    accept a move only on the true objective.
+
+    A move is a device function of (counts, best, done): once ``done`` is
+    set no later move changes anything, so the moves run in blocks of
+    ``_MOVES_PER_READ`` with one read of ``done`` after each block, and give
+    the reference's counts however far past its stop they run.  Returns the
+    counts on the host.
     """
     k = counts.shape[0]
+    device = counts.device
     inv_total = 1.0 / float(total)
-    ids = torch.arange(k, device=counts.device)
+    ids = torch.arange(k, device=device)
     hot = lambda idx: (idx[..., None] == ids).to(counts.dtype)  # one-hot rows
+    # Candidate rows scored at once: the sweep's (rows, points, K) float32
+    # intermediates stay within _SWEEP_BYTES.
+    rows = max(1, _SWEEP_BYTES // (4 * _REFINE_QUAD_POINTS * k))
 
     def score(c):
         return evaluate(
@@ -94,15 +138,18 @@ def _refine_counts(
         )
 
     def sweep(c, donors, receivers):
-        """(len(donors), len(receivers)) move scores, one donor at a time."""
-        rows = []
-        can_give = c[donors] > min_per_worker
-        for i in range(donors.shape[0]):
-            d = donors[i]
-            cand = c[None, :] - hot(d)[None, :] + hot(receivers)
-            valid = can_give[i] & (receivers != d)
-            rows.append(torch.where(valid, score(cand), torch.inf))
-        return torch.stack(rows)
+        """(len(donors), len(receivers)) move scores, donors in chunks."""
+        n_r = receivers.shape[0]
+        step = max(1, rows // n_r)
+        can_give = c.index_select(0, donors) > min_per_worker
+        out = []
+        for i in range(0, donors.shape[0], step):
+            d = donors[i:i + step]
+            cand = c - hot(d)[:, None, :] + hot(receivers)[None, :, :]  # (nd, R, K)
+            valid = can_give[i:i + step, None] & (receivers[None, :] != d[:, None])
+            s = score(cand.reshape(-1, k)).reshape(d.shape[0], n_r)
+            out.append(torch.where(valid, s, torch.inf))
+        return torch.cat(out)
 
     def smooth_grad(c):
         with torch.enable_grad():
@@ -119,23 +166,39 @@ def _refine_counts(
         gradient of exactly 0, and the order decides the move among ties."""
         return torch.sort(x, descending=True, stable=True).indices[:slab]
 
-    best = score(counts)
-    for _ in range(max_moves):
+    def move(c, best, done, accepted):
         if k <= slab:
             donors = receivers = ids
         else:
-            g = smooth_grad(counts)
-            donors = top(torch.where(counts > min_per_worker, g, -torch.inf))
+            g = smooth_grad(c)
+            donors = top(torch.where(c > min_per_worker, g, -torch.inf))
             receivers = top(-g)
-        scores = sweep(counts, donors, receivers)
-        flat = torch.argmin(scores)
-        val = scores.reshape(-1)[flat]
-        if not bool(val < best - 1e-9):
+        scores = sweep(c, donors, receivers).reshape(-1)
+        flat = torch.argmin(scores).reshape(1)  # the first of equal minima
+        val = scores.gather(0, flat)[0]
+        n_r = receivers.shape[0]
+        d = donors.gather(0, torch.div(flat, n_r, rounding_mode="floor"))
+        r = receivers.gather(0, flat % n_r)
+        improved = (val < best - 1e-9) & ~done
+        c = torch.where(improved, c - hot(d)[0] + hot(r)[0], c)
+        best = torch.where(done, best, torch.minimum(val, best))
+        return c, best, done | ~improved, accepted + improved.to(accepted.dtype)
+
+    _STATS["calls"] += 1
+    best = score(counts)
+    done = torch.zeros((), dtype=torch.bool, device=device)
+    accepted = torch.zeros((), dtype=torch.int64, device=device)
+    moves = 0
+    while moves < max_moves:
+        block = min(_MOVES_PER_READ, max_moves - moves)
+        for _ in range(block):
+            counts, best, done, accepted = move(counts, best, done, accepted)
+        moves += block
+        if moves < max_moves and bool(_to_host(done)[0]):
             break
-        d = donors[flat // receivers.shape[0]]
-        r = receivers[flat % receivers.shape[0]]
-        counts = counts - hot(d) + hot(r)
-        best = torch.minimum(val, best)
+    counts, accepted = _to_host(counts, accepted)
+    _STATS["evaluated"] += moves
+    _STATS["accepted"] += int(accepted)
     return counts
 
 
@@ -207,7 +270,7 @@ def quantize_fractions(
         min_per_worker=min_per_worker,
         max_moves=refine_passes * min(k, 4 * _REFINE_SLAB),
     )
-    return refined.cpu().numpy().astype(np.int64)
+    return refined.numpy().astype(np.int64)
 
 
 def quantize_dag_fractions(

@@ -50,6 +50,8 @@ def _both(x, dtype):
 
 
 def _close(got, want, tol):
+    if isinstance(want, torch.Tensor):  # numpy has no bfloat16
+        want = want.float().numpy()
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=tol, atol=tol)
 

@@ -37,10 +37,13 @@ from repro_torch.models.params import tree_map as ttree_map
 from repro_torch.models import recurrent as tr
 from repro_torch.train import serve_step as tss
 
-ARCH_NAMES = ["recurrentgemma-2b", "tinyllama-1.1b"]
+ARCH_NAMES = ["recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-3b-a800m", "arctic-480b"]
+DENSE_FFN_NAMES = ARCH_NAMES[:2]  # geglu and swiglu; the MoE FFNs are tests/test_torch_moe.py's
 # recurrentgemma at a 4-token window and 5 layers: one (rglru, rglru,
-# localattn) cycle plus the two unrolled rglru layers of the full model's tail
-OVERRIDES = {"recurrentgemma-2b": dict(local_window=4, num_layers=5), "tinyllama-1.1b": {}}
+# localattn) cycle plus the two unrolled rglru layers of the full model's
+# tail; the MoE archs at the reduced configs' dropless capacity factor 4.0
+OVERRIDES = {"recurrentgemma-2b": dict(local_window=4, num_layers=5), "tinyllama-1.1b": {},
+             "granite-moe-3b-a800m": {}, "arctic-480b": {}}
 MOD_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
 
@@ -116,7 +119,7 @@ def test_rope_matches_reference():
     _close(tl.rope(torch.as_tensor(x), torch.as_tensor(pos), 10000.0), want, MOD_TOL)
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)  # geglu and swiglu
+@pytest.mark.parametrize("name", DENSE_FFN_NAMES)
 def test_mlp_matches_reference(name):
     jcfg, tcfg, _, _ = _model(name)
     jp, tp = _first_block(name, 0)
@@ -270,6 +273,21 @@ def test_init_model_params_draws_each_leaf_at_its_scale():
     assert torch.all(mix["lam"] == 1) and torch.all(mix["conv_b"] == 0)
     again = tz.init_model_params(cfg, seed=0, device="cpu")
     assert torch.equal(again["embed"], params["embed"])
+
+
+def test_init_params_draws_large_leaves_in_pieces(monkeypatch):
+    """A leaf over params._DRAW_CHUNK elements (arctic-480b's stacked
+    experts at full width) is drawn piece by piece into the leaf: the same
+    scale, the model dtype, and the same values from the same seed."""
+    from repro_torch.models import params as tparams
+
+    monkeypatch.setattr(tparams, "_DRAW_CHUNK", 1000)
+    cfg = reduced(get_arch("arctic-480b"), dtype="bfloat16")
+    params = tz.init_model_params(cfg, seed=0, device="cpu")
+    wi = params["cycles"][0]["ffn"]["wi"]
+    assert wi.shape == (2, 4, 64, 128) and wi.dtype == torch.bfloat16 and wi.numel() > 1000
+    assert float(wi.float().std()) == pytest.approx(0.02, rel=0.05)
+    assert torch.equal(tz.init_model_params(cfg, seed=0, device="cpu")["cycles"][0]["ffn"]["wi"], wi)
 
 
 def test_unported_arch_and_kind_raise():

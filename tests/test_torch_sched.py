@@ -135,6 +135,136 @@ def test_slab_refinement_reaches_reference_objective():
     np.testing.assert_allclose(e_t(got), e_t(want), rtol=1e-6)
 
 
+# (seed, microbatches a worker) of the blocked-refinement tests' inputs by
+# K (34 > 32 takes the slab): on these the
+# reference's path from the rounding has no two candidate moves within
+# float32 rounding of each other, so its counts are determined move by move.
+# (Elsewhere the two packages may break such a near-tie differently, as the
+# port's earlier one-read-a-move loop did too; ROADMAP queue 3, tie order.)
+BLOCKED_CASES = {12: (1, 6), 34: (6, 2)}
+
+
+def _blocked_case(k):
+    """Workers at mu 5-40, sigma 0.5-3, and the rounding of a Dirichlet
+    split to its microbatches."""
+    seed, per_worker = BLOCKED_CASES[k]
+    rng = np.random.default_rng(seed)
+    jp, tp = _both(rng.uniform(5, 40, k), rng.uniform(0.5, 3, k))
+    total = per_worker * k
+    return jp, tp, total, ts.quantize_fractions(rng.dirichlet(np.full(k, 0.5)), total)
+
+
+@pytest.mark.parametrize("k", [12, 34], ids=["exhaustive", "slab"])
+@pytest.mark.parametrize("max_moves", [200, 11], ids=["stops", "hits_max_moves"])
+def test_blocked_refinement_gives_reference_counts(k, max_moves):
+    """The moves run in blocks of _MOVES_PER_READ with one device read a
+    block: the counts equal the reference's while_loop's, whether the
+    descent stops before max_moves or is cut there (11 moves: one whole
+    block and a cut one)."""
+    from repro.sched.quantize import _refine_counts as j_refine
+    from repro_torch.sched import quantize as tq
+
+    jp, tp, total, naive = _blocked_case(k)
+    kw = dict(min_per_worker=1, max_moves=max_moves)
+    tq.reset_refine_stats()
+    got = tq._refine_counts(torch.as_tensor(naive), tp, total, objective=ts.Objective(), **kw)
+    want = np.asarray(j_refine(jnp.asarray(naive), jp, jnp.asarray(total),
+                               objective=js.Objective(), **kw))
+    stats = tq.refine_stats()
+    _check(got.numpy(), total)
+    np.testing.assert_array_equal(got.numpy(), want)
+    moved = int(np.abs(want - naive).sum()) // 2
+    if max_moves == 200:
+        assert 0 < stats["accepted"] < max_moves
+    else:
+        assert stats["accepted"] == max_moves == stats["evaluated"]
+    assert stats["accepted"] >= moved and stats["calls"] == 1
+
+
+@pytest.mark.parametrize("k", [6, 34], ids=["exhaustive", "slab"])
+def test_blocked_refinement_equals_one_read_a_move(k, monkeypatch):
+    """Blocks of moves give bitwise the counts of a read after every move
+    (_MOVES_PER_READ = 1, the old host loop's stop), on inputs with exact
+    and near ties between moves (one speed class)."""
+    from repro_torch.sched import quantize as tq
+
+    rng = np.random.default_rng(3)
+    _, tp = _both(rng.uniform(10, 14, k), rng.uniform(2, 3, k))
+    naive = torch.as_tensor(ts.quantize_fractions(rng.dirichlet(np.full(k, 0.5)), 6 * k))
+    run = lambda: tq._refine_counts(naive, tp, 6 * k, objective=ts.Objective(), min_per_worker=1,
+                                    max_moves=40)
+    blocked = run()
+    monkeypatch.setattr(tq, "_MOVES_PER_READ", 1)
+    tq.reset_refine_stats()
+    np.testing.assert_array_equal(blocked.numpy(), run().numpy())
+    stats = tq.refine_stats()
+    assert stats["evaluated"] == min(stats["accepted"] + 1, 40)
+
+
+def test_refinement_reads_the_device_once_a_block(monkeypatch):
+    """Every device read goes through quantize._to_host: at most
+    ceil(moves / m) + 1 of them for the moves run, and the moves run
+    overshoot the accepted ones by at most one block."""
+    from repro_torch.sched import quantize as tq
+
+    m = tq._MOVES_PER_READ
+    reads = []
+    to_host = tq._to_host
+    monkeypatch.setattr(tq, "_to_host", lambda *xs: reads.append(len(xs)) or to_host(*xs))
+    for k in BLOCKED_CASES:
+        _, tp, total, naive = _blocked_case(k)
+        reads.clear()
+        tq.reset_refine_stats()
+        tq._refine_counts(torch.as_tensor(naive), tp, total, objective=ts.Objective(),
+                          min_per_worker=1, max_moves=200)
+        stats = tq.refine_stats()
+        assert stats["accepted"] > m  # more than one block ran
+        assert len(reads) == stats["reads"] <= -(-stats["evaluated"] // m) + 1
+        assert stats["evaluated"] <= stats["accepted"] + m
+
+
+@pytest.mark.cuda
+def test_refinement_block_runs_without_a_sync_on_the_card(monkeypatch):
+    """One block of moves on the card under sync-debug "error": only the
+    reads of quantize._to_host wait for the card, at K <= 32 and on the
+    slab's gradient path.  At K = 12 the card's counts are the CPU's.  On
+    the slab the card's float32 gradient may rank tied workers into another
+    slab and so take other moves (after 8 moves at K = 34, E[t] 1.405 on the
+    card against 1.450 on the CPU, from 3.568; an H100): there the block is held
+    to a descent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.device import no_sync
+    from repro_torch.sched import quantize as tq
+
+    to_host = tq._to_host
+
+    def allowed_read(*xs):
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return to_host(*xs)
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+
+    monkeypatch.setattr(tq, "_to_host", allowed_read)
+    kw = dict(objective=ts.Objective(), min_per_worker=1, max_moves=tq._MOVES_PER_READ)
+    for k in BLOCKED_CASES:
+        _, host, total, naive = _blocked_case(k)
+        want = tq._refine_counts(torch.as_tensor(naive), host, total, **kw).numpy()
+        card = TUnit(*(x.cuda() for x in host))
+        start = torch.as_tensor(naive, device="cuda")
+        with no_sync("cuda"):
+            got = tq._refine_counts(start, card, total, **kw).numpy()
+        _check(got, total)
+        if k <= 32:
+            np.testing.assert_array_equal(got, want)
+        else:
+            e_t = lambda c: float(ts.evaluate(ts.Objective(), torch.as_tensor(c / total).float(),
+                                              host, num_points=192))
+            assert e_t(got) < e_t(naive) and np.abs(got - naive).sum() <= 2 * kw["max_moves"]
+
+
 CFG = dict(n_iters=3, grid_size=32, num_points=64, opt_steps=10)
 
 
