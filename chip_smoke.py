@@ -17,7 +17,9 @@ result lines:
      paths give it: K1 in both its modes (mirrored and general), the
      service's slab (2048, 512, 8) and dense drain (100 000, 512, 8) among
      them, K2 at every compiled (G, D), with a sequence of length 0 and at
-     the decode shapes of phases 7b, 7c and 7d (arctic's (7, 128)), K3
+     the decode shapes of phases 7b-7h (arctic's (7, 128), whisper's self
+     and 1500-row cross caches at (1, 64), internvl2's (7, 64), yi's and
+     command-r's (8, 128)) in float32 and with a bfloat16 query, K3
      at the ragged edges
      of its tiling, with decays near 1 (where every chunk's carry shows) and
      from rows that are not 16-byte aligned, and K3's output bitwise the
@@ -26,8 +28,9 @@ result lines:
      CUDA-event-timed replays of a CUDA graph of repeated calls), its plain
      version's time, its bound, for K1 the general mode's time and the
      special-function floor, for K2 the time of
-     ``scaled_dot_product_attention`` on the same inputs (also at phase 7d's
-     shape, under ``by_shape``), and for K3 the
+     ``scaled_dot_product_attention`` on the same inputs (also at the
+     decode shapes of phases 7d-7g, whisper's cross cache among them, under
+     ``by_shape``), and for K3 the
      stream yardstick ``torch.add(a, x, out=h)``, which moves its bytes, and
      its time from rows that are not 16-byte aligned (plain loads, not TMA);
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
@@ -79,6 +82,25 @@ result lines:
      bf16 weights a layer) through the same entry point with ARCTIC_ARGV:
      one prefill of 4 x 128 tokens and 3 decode steps, K2 launches (2 per
      decode step at (7, 128)), peak memory;
+ 7e. the encoder-decoder family: whisper-medium at full width (24 encoder
+     layers over 1500 zero frames, 24 decoder layers with cross attention)
+     through the same entry point with WHISPER_ARGV (batch 4, 64-token
+     prompts, 16 tokens), after a 2-token warm-up: K2 launches (2 per
+     decoder layer and decode step, (G, D) = (1, 64): the self cache and
+     the 1500-row cross cache), the encoder's own time, peak memory;
+ 7f. the vision family: internvl2-1b at full width (256 zero patch
+     embeddings before 512-token prompts, qkv and MLP biases) with
+     INTERNVL_ARGV, as 7e: K2 launches (24 per decode step at (7, 64));
+ 7g. yi-9b at full width (48 layers, 8.8 B bf16 parameters) with YI_ARGV
+     (batch 4, 512-token prompts, 16 tokens), as 7e: K2 at (8, 128);
+ 7h. command-r-35b at full width and all 40 layers (30.3 B bf16
+     parameters, 60.6 GB) with COMMAND_R_ARGV: one prefill of
+     4 x 128 tokens and 3 decode steps, no warm-up, K2 at (8, 128), peak
+     memory;
+ 8b. teacher forcing at full width in float32, as phase 8, for whisper-medium
+     (random frames) and internvl2-1b (random patches, biases drawn so that
+     they count): batch 2, prefill, 3 decode steps against
+     ``forward_train``'s logits after the vision prefix;
  10. partitioned serving at full width: ``repro_torch.launch.serve`` with
      PART_ARGV (recurrentgemma-2b, 16 rounds, 4 replicas, batch 16, 1024-token
      prompts, 16 tokens, a drain every 4 rounds, the drift gate at the
@@ -289,6 +311,33 @@ ARCTIC_ARCH, ARCTIC_LAYERS, ARCTIC_BATCH, ARCTIC_PROMPT, ARCTIC_GEN = "arctic-48
 ARCTIC_ARGV = ["--arch", ARCTIC_ARCH, "--full", "--batch", str(ARCTIC_BATCH),
                "--prompt-len", str(ARCTIC_PROMPT), "--gen-len", str(ARCTIC_GEN)]
 K2_ARCTIC = (ARCTIC_BATCH, 56, 8, 128, ARCTIC_PROMPT + ARCTIC_GEN + 8)
+# Phases 7e-7h, each at full width through launch.serve's entry point:
+# (arch, batch, prompt tokens, generated tokens).  The cache is vision
+# patches + prompt + gen + 8 rows deep (launch/serve.py's latency_demo).
+WHISPER = ("whisper-medium", 4, 64, 16)
+INTERNVL = ("internvl2-1b", 4, 512, 16)
+YI = ("yi-9b", 4, 512, 16)
+COMMAND_R = ("command-r-35b", 4, 128, 4)  # all 40 layers: 56.4 GiB of bf16 weights
+
+
+def serve_argv(arch, batch, prompt, gen):
+    return ["--arch", arch, "--full", "--batch", str(batch), "--prompt-len", str(prompt),
+            "--gen-len", str(gen)]
+
+
+WHISPER_ARGV, INTERNVL_ARGV, YI_ARGV, COMMAND_R_ARGV = (
+    serve_argv(*case) for case in (WHISPER, INTERNVL, YI, COMMAND_R))
+WHISPER_FRAMES, INTERNVL_PATCHES = 1500, 256  # the configs' encoder_seq, vision_patches
+# K2 at their decode shapes (B, H, KVH, D, S): whisper's self cache and its
+# cross cache over every encoder row, internvl2's after its 256 patches,
+# yi's and command-r's.
+K2_WHISPER_SELF = (4, 16, 16, 64, WHISPER[2] + WHISPER[3] + 8)
+K2_WHISPER_CROSS = (4, 16, 16, 64, WHISPER_FRAMES)
+K2_INTERNVL = (4, 14, 2, 64, INTERNVL_PATCHES + INTERNVL[2] + INTERNVL[3] + 8)
+K2_YI = (4, 32, 4, 128, YI[2] + YI[3] + 8)
+K2_COMMAND_R = (4, 64, 8, 128, COMMAND_R[2] + COMMAND_R[3] + 8)
+# Phase 8b: float32 teacher forcing at full width, (arch, batch, prefill tokens).
+TF_FAMILIES = (("whisper-medium", 2, 64), ("internvl2-1b", 2, 512))
 
 
 def decode_case(b, h, kvh, d, s, seed, q_dtype, kv_dtype, length=None):
@@ -353,6 +402,19 @@ def phase_k2_parity():
     for q_dt, tol in ((bf16, 2e-2), (f32, 2e-5)):
         cases.append((K2_ARCTIC, q_dt, f32,
                       [ARCTIC_PROMPT + 1, ARCTIC_PROMPT + ARCTIC_GEN - 1, ARCTIC_PROMPT + 2, s], tol))
+    # Phases 7e-7h: the lengths of the first and last decode step, one
+    # between, and S; whisper's cross cache every one of its 1500 rows (not a
+    # multiple of the 64-row chunk).
+    first_last = lambda prefix, prompt, gen, s: [prefix + prompt + 1, prefix + prompt + gen - 1,
+                                                 prefix + prompt + 2, s]
+    for shape, length in (
+            (K2_WHISPER_CROSS, [WHISPER_FRAMES] * 4),
+            (K2_WHISPER_SELF, first_last(0, *WHISPER[2:], K2_WHISPER_SELF[-1])),
+            (K2_INTERNVL, first_last(INTERNVL_PATCHES, *INTERNVL[2:], K2_INTERNVL[-1])),
+            (K2_YI, first_last(0, *YI[2:], K2_YI[-1])),
+            (K2_COMMAND_R, first_last(0, *COMMAND_R[2:], K2_COMMAND_R[-1]))):
+        for q_dt, tol in ((f32, 2e-5), (bf16, 1e-3)):
+            cases.append((shape, q_dt, f32, length, tol))
     worst = 0.0
     for i, (shape, q_dt, kv_dt, length, tol) in enumerate(cases):
         args = decode_case(*shape, seed=100 + i, q_dtype=q_dt, kv_dtype=kv_dt, length=length)
@@ -569,10 +631,13 @@ def k2_timing(shape):
 
 def phase_k2_timing():
     """K2 at the serving path's decode shape (the kernel's time in the
-    result line), and at arctic-480b's (phase 7d's, (G, D) = (7, 128)),
-    listed under ``by_shape``."""
+    result line), and listed under ``by_shape`` at arctic-480b's (phase 7d,
+    (G, D) = (7, 128)), whisper-medium's cross cache (phase 7e, (1, 64),
+    1500 rows), internvl2-1b's (phase 7f, (7, 64)) and yi-9b's (phase 7g,
+    (8, 128))."""
     main_path = k2_timing(K2_PATH)
-    return dict(main_path, by_shape={str(K2_ARCTIC): k2_timing(K2_ARCTIC)})
+    shapes = (K2_ARCTIC, K2_WHISPER_CROSS, K2_INTERNVL, K2_YI)
+    return dict(main_path, by_shape={str(shape): k2_timing(shape) for shape in shapes})
 
 
 def phase_k3_timing():
@@ -759,9 +824,10 @@ def phase_serve():
 
 
 def teacher_forcing(cfg, params, batch, prefill, steps, tag):
-    """Prefill ``prefill`` random tokens, then ``steps`` teacher-forced
-    decode steps, against ``forward_train``'s logits at the same positions
-    (TF_TOL).  Returns the worst |err|."""
+    """Prefill ``prefill`` random tokens (after random patch embeddings for a
+    vision model, over random frames for an encoder-decoder), then ``steps``
+    teacher-forced decode steps, against ``forward_train``'s logits at the
+    same positions (TF_TOL).  Returns the worst |err|."""
     import numpy as np
     import torch
     from repro_torch.models import model_zoo
@@ -769,13 +835,25 @@ def teacher_forcing(cfg, params, batch, prefill, steps, tag):
 
     total = prefill + steps
     rng = np.random.default_rng(1)
+    device = params["embed"].device
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, total)),
-                           dtype=torch.int32, device=params["embed"].device)
-    full, _ = model_zoo.forward_train(cfg, params, {"tokens": toks}, ctx=ApplyCtx(mode="train"))
-    want = full[:, prefill - 1:].clone()  # (B, 1 + steps, V)
+                           dtype=torch.int32, device=device)
+    extras = {}
+    if cfg.vision_patches:
+        extras["vision"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.vision_patches, cfg.d_model)), dtype=torch.float32,
+            device=device)
+    if cfg.family == "encdec":
+        extras["frames"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)), dtype=torch.float32,
+            device=device)
+    full, _ = model_zoo.forward_train(cfg, params, dict(extras, tokens=toks),
+                                      ctx=ApplyCtx(mode="train"))
+    off = cfg.vision_patches  # the logits of the text come after the patches
+    want = full[:, off + prefill - 1:].clone()  # (B, 1 + steps, V)
     del full
-    cache = model_zoo.init_cache(cfg, batch, total + 8, torch.float32)
-    got, cache = model_zoo.prefill(cfg, params, {"tokens": toks[:, :prefill]}, cache,
+    cache = model_zoo.init_cache(cfg, batch, off + total + 8, torch.float32)
+    got, cache = model_zoo.prefill(cfg, params, dict(extras, tokens=toks[:, :prefill]), cache,
                                    ctx=ApplyCtx(mode="prefill"))
     outs = [got]
     for j in range(prefill, total):
@@ -787,7 +865,7 @@ def teacher_forcing(cfg, params, batch, prefill, steps, tag):
         err = assert_close(got, want[:, i], **TF_TOL)
         worst = max(worst, err)
         what = "prefill" if i == 0 else f"decode step {i}"
-        say(f"[{tag}] {what} (position {prefill - 1 + i}): max|err| {err:.3e} against "
+        say(f"[{tag}] {what} (position {off + prefill - 1 + i}): max|err| {err:.3e} against "
             f"forward_train, max|logit| {float(want[:, i].abs().max()):.3f}")
     return worst
 
@@ -1243,7 +1321,9 @@ def serve_cli(tag, argv, batch, gen, *, warm_up=True):
     if tokens.shape != (batch, gen) or not bool(
             ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
         raise AssertionError(f"[{tag}] generated tokens {tuple(tokens.shape)} out of shape or range")
-    want = cfg.num_layers * (gen - 1)  # every layer attends in every decode step
+    # every layer attends in every decode step; an encoder-decoder's decoder
+    # layer twice (its self cache, then its cross cache); the encoder never
+    want = cfg.num_layers * (2 if cfg.family == "encdec" else 1) * (gen - 1)
     if launches.get("decode_attention") != want:
         raise AssertionError(f"[{tag}] K2 launched {launches} times, not {want}")
     say(f"[{tag}] {' '.join(argv)}: {cfg.num_layers} layers, (G, D) = "
@@ -1353,38 +1433,151 @@ def phase_teacher_forcing_granite():
     return worst
 
 
+def serve_at_depth(tag, argv, batch, gen, layers):
+    """Serve ``argv``'s arch at full width with its depth cut to ``layers``
+    through the serving CLI's entry point (the cut goes through the
+    registry's config, for this call only): one run, no warm-up (one run of
+    tens of GB of weights is enough).  Returns (launches, the cut config,
+    peak device memory in bytes, seconds with initialisation)."""
+    import torch
+    from repro_torch import configs
+
+    arch = argv[argv.index("--arch") + 1]
+    full = configs.ARCHS[arch]
+    cut = dataclasses.replace(full, num_layers=layers)
+    torch.cuda.empty_cache()
+    configs.ARCHS[arch] = cut
+    try:
+        t0 = time.perf_counter()
+        launches, out, peak = serve_cli(tag, argv, batch, gen, warm_up=False)
+        seconds = time.perf_counter() - t0
+    finally:
+        configs.ARCHS[arch] = full
+    del out
+    torch.cuda.empty_cache()
+    return launches, cut, peak, seconds
+
+
 def phase_serve_arctic():
     """Phase 7d: arctic-480b at full width (d_model 7168, 128 experts top-2
     and the dense residual FFN) with its depth cut to ARCTIC_LAYERS of 35,
-    through the serving CLI's entry point: the cut goes through the
-    registry's config, for this phase only.  One prefill and ARCTIC_GEN - 1
-    decode steps, no warm-up (one run of 55 GB of weights is enough);
-    K2 at (7, 128)."""
-    import dataclasses
-
-    import torch
-    from repro_torch import configs
+    through the serving CLI's entry point: one prefill and ARCTIC_GEN - 1
+    decode steps; K2 at (7, 128)."""
+    from repro_torch.configs import get_arch
     from repro_torch.models import model_zoo
 
-    full = configs.ARCHS[ARCTIC_ARCH]
-    cut = dataclasses.replace(full, num_layers=ARCTIC_LAYERS)
-    torch.cuda.empty_cache()
-    configs.ARCHS[ARCTIC_ARCH] = cut
-    try:
-        t0 = time.perf_counter()
-        launches, out, peak = serve_cli("arctic", ARCTIC_ARGV, ARCTIC_BATCH, ARCTIC_GEN,
-                                        warm_up=False)
-        seconds = time.perf_counter() - t0
-    finally:
-        configs.ARCHS[ARCTIC_ARCH] = full
-    n = model_zoo.param_count(cut)
+    launches, cut, peak, seconds = serve_at_depth("arctic", ARCTIC_ARGV, ARCTIC_BATCH,
+                                                  ARCTIC_GEN, ARCTIC_LAYERS)
+    full, n = get_arch(ARCTIC_ARCH), model_zoo.param_count(cut)
     say(f"[arctic] {cut.name} at full width, {ARCTIC_LAYERS} of {full.num_layers} layers: "
         f"{n / 1e9:.3f} B parameters in {cut.dtype} ({n * 2 / 1e9:.1f} GB; the whole model "
         f"{model_zoo.param_count(full) / 1e9:.1f} B), peak device memory {peak / 2**30:.2f} GiB, "
         f"{seconds:.1f} s with initialisation")
+    return launches
+
+
+def phase_serve_whisper():
+    """Phase 7e: whisper-medium at full width through the serving CLI's
+    entry point (zero frames, as the reference's latency demo); K2 at (1, 64)
+    twice a decoder layer and decode step, over the self cache and over
+    the 1500-row cross cache.  Then the encoder alone on the same frames,
+    the median of 3 calls: the part of the prefill that is the encoder's."""
+    import torch
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import ApplyCtx
+
+    arch, batch, _, gen = WHISPER
+    launches, out, peak = serve_cli("whisper", WHISPER_ARGV, batch, gen)
+    cfg, params = out["cfg"], out["params"]
+    frames = torch.zeros((batch, cfg.encoder_seq, cfg.d_model), device=params["embed"].device)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encdec.encode(cfg, params["encoder"], frames, ctx=ApplyCtx(mode="prefill"))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    say(f"[whisper] {arch}: {cfg.encoder_layers} encoder layers over {cfg.encoder_seq} frames "
+        f"take {statistics.median(times):.1f} ms (median of 3) of the prefill's "
+        f"{out['prefill_ms']:.1f} ms; the decoder's {cfg.num_layers} layers launch K2 twice a "
+        f"decode step")
+    return launches
+
+
+def phase_serve_family(tag, case, argv):
+    """Phases 7f and 7g: one arch at full width through the serving CLI's
+    entry point, as phase 7b."""
+    launches, out, _ = serve_cli(tag, argv, case[1], case[3])
+    cfg = out["cfg"]
+    say(f"[{tag}] {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters in {cfg.dtype}, "
+        f"{cfg.vision_patches} vision patches before each prompt, biases {cfg.use_bias}, rope "
+        f"theta {cfg.rope_theta:g}")
+    return launches
+
+
+def phase_serve_command_r():
+    """Phase 7h: command-r-35b at full width and full depth (vocabulary
+    256 000, rope theta 8e6), one prefill and 3 decode steps, no warm-up (one
+    run of 60 GB of weights is enough); K2 at (8, 128)."""
+    import torch
+
+    arch, batch, _, gen = COMMAND_R
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches, out, peak = serve_cli("command-r", COMMAND_R_ARGV, batch, gen, warm_up=False)
+    seconds = time.perf_counter() - t0
+    cfg = out["cfg"]
+    n = cfg.param_count()
     del out
     torch.cuda.empty_cache()
+    say(f"[command-r] {cfg.name} at full width, all {cfg.num_layers} layers: "
+        f"{n / 1e9:.3f} B parameters in {cfg.dtype} ({n * 2 / 1e9:.1f} GB, "
+        f"{n * 2 / 2**30:.1f} GiB), peak device memory {peak / 2**30:.2f} GiB, {seconds:.1f} s "
+        f"with initialisation")
     return launches
+
+
+BIAS_KEYS = ("bq", "bk", "bv", "bi", "bo")
+
+
+def draw_biases(tree, gen, std=0.1):
+    """Redraw every bias leaf of a parameter tree from N(0, std^2) in place:
+    they start at zero, where a check could not see them."""
+    if isinstance(tree, list):
+        for x in tree:
+            draw_biases(x, gen, std)
+        return
+    for name, x in tree.items():
+        if name in BIAS_KEYS:
+            x.normal_(0.0, std, generator=gen)
+        elif isinstance(x, (dict, list)):
+            draw_biases(x, gen, std)
+
+
+def phase_teacher_forcing_families():
+    """Phase 8b: float32 teacher forcing at full width for the encoder-decoder
+    (random frames) and the vision family (random patches; biases drawn),
+    as phase 8.  Returns the worst |err|."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import tree_map
+
+    worst = 0.0
+    for arch, batch, prefill in TF_FAMILIES:
+        cfg = get_arch(arch)
+        params = tree_map(lambda t: t.float(), model_zoo.init_model_params(cfg, seed=0))
+        draw_biases(params, torch.Generator(device=params["embed"].device).manual_seed(5))
+        err = teacher_forcing(cfg, params, batch, prefill, TF_STEPS, "family-teacher")
+        worst = max(worst, err)
+        say(f"[family-teacher] {cfg.name} float32 ({cfg.vision_patches} patches, "
+            f"{cfg.encoder_seq if cfg.family == 'encdec' else 0} frames, biases "
+            f"{'drawn' if cfg.use_bias else 'none'}), batch {batch}, prefill {prefill}, "
+            f"{TF_STEPS} decode steps: within rtol {TF_TOL['rtol']} atol {TF_TOL['atol']}, "
+            f"worst {err:.3e}")
+        del params
+        torch.cuda.empty_cache()
+    return worst
 
 
 # Phase 11: the workflow DAG (slice 6).  S = 8 stages, K = 512 workers each
@@ -1665,6 +1858,11 @@ def main() -> int:
     del granite_ffn
     phase_teacher_forcing_granite()
     arctic_launches = phase_serve_arctic()
+    whisper_launches = phase_serve_whisper()
+    internvl_launches = phase_serve_family("internvl2", INTERNVL, INTERNVL_ARGV)
+    yi_launches = phase_serve_family("yi", YI, YI_ARGV)
+    command_r_launches = phase_serve_command_r()
+    phase_teacher_forcing_families()
     service_launches, _ = phase_service()
     drives = 2 * (1 + SVC_TICKS)  # dense and active loops, a warm-up tick and the timed ones
     if service_launches.get("posterior_grid_fleet") != SWEEPS * drives:
@@ -1688,6 +1886,8 @@ def main() -> int:
         raise AssertionError(f"K1 launched {dag_launches} times on the DAG path, not {SWEEPS * CYCLES}")
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
+                   serve_whisper=whisper_launches, serve_internvl2=internvl_launches,
+                   serve_yi=yi_launches, serve_command_r=command_r_launches,
                    service=service_launches, partitioned=part_launches, dag=dag_launches)
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),

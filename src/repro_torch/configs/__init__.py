@@ -1,19 +1,30 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 Only the architectures whose block kinds the port runs are registered (the
-dense, hybrid and MoE families); the reference's other archs wait for their
-families to be ported.
+dense, hybrid, MoE, encoder-decoder and vision families); the reference's
+ssm arch (xlstm-1.3b) waits for its family to be ported.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import arctic_480b, granite_moe_3b, recurrentgemma_2b, smollm_135m, tinyllama_1_1b
+from . import (
+    arctic_480b,
+    command_r_35b,
+    granite_moe_3b,
+    internvl2_1b,
+    recurrentgemma_2b,
+    smollm_135m,
+    tinyllama_1_1b,
+    whisper_medium,
+    yi_9b,
+)
 from .base import ModelConfig, ShapeConfig, reduced
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
-    for m in (tinyllama_1_1b, recurrentgemma_2b, smollm_135m, granite_moe_3b, arctic_480b)
+    for m in (whisper_medium, granite_moe_3b, arctic_480b, command_r_35b, smollm_135m,
+              tinyllama_1_1b, yi_9b, internvl2_1b, recurrentgemma_2b)
 }
 
 

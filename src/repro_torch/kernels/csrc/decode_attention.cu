@@ -445,6 +445,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v, con
   DECODE_CASE(8, 64)    // tinyllama-1.1b
   DECODE_CASE(3, 64)    // smollm-135m and granite-moe-3b-a800m
   DECODE_CASE(7, 128)   // arctic-480b
+  DECODE_CASE(1, 64)    // whisper-medium, self and cross attention
+  DECODE_CASE(7, 64)    // internvl2-1b
+  DECODE_CASE(8, 128)   // yi-9b and command-r-35b
   DECODE_CASE(4, 16)    // the reduced configurations of both
   DECODE_CASE(4, 64)    // the parity shapes of tests/test_kernels.py
   DECODE_CASE(1, 32)

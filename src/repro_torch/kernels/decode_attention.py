@@ -30,10 +30,11 @@ _KERNEL = CudaKernel(
 CHUNK = 64  # cache rows per block of the kernel's first pass (kChunk)
 # The (G, D) = (query heads per kv head, head dimension) pairs the kernel is
 # compiled for: recurrentgemma-2b, tinyllama-1.1b, smollm-135m and
-# granite-moe-3b-a800m, arctic-480b, the reduced configurations of these, and
-# the parity shapes of tests/test_kernels.py.
-INSTANTIATED = frozenset({(10, 256), (8, 64), (3, 64), (7, 128), (4, 16), (4, 64), (1, 32),
-                          (3, 16), (4, 32)})
+# granite-moe-3b-a800m, arctic-480b, whisper-medium (self and cross),
+# internvl2-1b, yi-9b and command-r-35b, the reduced configurations of these,
+# and the parity shapes of tests/test_kernels.py.
+INSTANTIATED = frozenset({(10, 256), (8, 64), (3, 64), (7, 128), (1, 64), (7, 64), (8, 128),
+                          (4, 16), (4, 64), (1, 32), (3, 16), (4, 32)})
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

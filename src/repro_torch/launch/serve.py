@@ -6,7 +6,8 @@ The port's counterpart of ``repro.launch.serve``.  Two modes:
     and decode greedily, reporting prefill time and decode time per token;
   * **partitioned serving** (``--rounds N`` or ``--serve-smoke``): each
     round's request batch is split across heterogeneous (simulated) replicas
-    by the always-on estimation service (``repro_torch.serve.ServiceLoop``).
+    by the always-on estimation service (``repro_torch.serve.ServiceLoop``)
+    (token-only archs: no vision patches or frames yet).
     The driver reads the last-good split from the service's host slot,
     quantizes it to requests, really serves replica 0's shard on the model
     (prefill and greedy decode), and pushes every replica's measured time
@@ -37,23 +38,38 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def latency_demo(cfg, params, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0):
-    """Prefill ``batch`` random prompts of ``prompt_len`` tokens (numpy seed
-    ``seed``), then decode ``gen_len - 1`` greedy tokens, with a float32
-    cache as the reference.  Returns a dict of prefill_ms, decode_ms (per
-    token), the tokens (B, gen_len) and the cache, on the parameters' device."""
-    device = params["embed"].device
+def _demo_batch(cfg, *, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """The reference latency demo's batch: random prompts (numpy seed ``seed``),
+    and zeros for a vision model's patch embeddings (B, vision_patches, d)
+    and an encoder-decoder's frames (B, encoder_seq, d)."""
     rng = np.random.default_rng(seed)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
-                             dtype=torch.int32, device=device)
-    cache = model_zoo.init_cache(cfg, batch, prompt_len + gen_len + 8, torch.float32,
-                                 device=device)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+                                     dtype=torch.int32, device=device)}
+    if cfg.vision_patches:
+        out["vision"] = torch.zeros((batch, cfg.vision_patches, cfg.d_model), device=device)
+    if cfg.family == "encdec":
+        out["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model), device=device)
+    return out
+
+
+def latency_demo(cfg, params, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0):
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens
+    (``_demo_batch``), then decode ``gen_len - 1`` greedy tokens, with a
+    float32 cache as the reference.  The cache is ``vision_patches +
+    prompt_len + gen_len + 8`` rows deep: the reference's leaves out the
+    vision prefix, and its prefill fails when the prefix does not fit in the
+    8 spare rows.  Returns a dict of prefill_ms, decode_ms (per token), the
+    tokens (B, gen_len) and the cache, on the parameters' device."""
+    device = params["embed"].device
+    inputs = _demo_batch(cfg, batch=batch, prompt_len=prompt_len, seed=seed, device=device)
+    cache = model_zoo.init_cache(cfg, batch, cfg.vision_patches + prompt_len + gen_len + 8,
+                                 torch.float32, device=device)
     prefill = serve_step.make_prefill_step(cfg, ctx=ApplyCtx(mode="prefill"))
     decode = serve_step.make_decode_step(cfg, ctx=ApplyCtx(mode="decode"))
 
     _sync(device)
     t0 = time.perf_counter()
-    token, cache = prefill(params, {"tokens": tokens}, cache)
+    token, cache = prefill(params, inputs, cache)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -74,8 +90,12 @@ def partitioned_serving(cfg, params, args) -> dict:
     Returns the service's counters and config, every published split, the
     requests of every round by replica, the final split and the oracle
     makespans (under the simulated replicas' true parameters) of the equal
-    and the learned split.
+    and the learned split.  Serves token-only archs: it passes no vision
+    patches and no frames yet.
     """
+    if cfg.vision_patches or cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: partitioned serving passes no vision patches or frames "
+                         f"yet; serve it with the latency demo (--rounds 0)")
     from .. import sched, serve
     from ..distributed.simulated_cluster import SimulatedCluster, WorkerSpec
 

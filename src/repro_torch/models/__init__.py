@@ -1,5 +1,7 @@
-"""The model stack of the port: the dense, hybrid (RG-LRU + local
-attention) and MoE families, for serving."""
-from . import layers, model_zoo, moe, params, recurrent, transformer
+"""The model stack of the port: the dense, vision, hybrid (RG-LRU + local
+attention), MoE and encoder-decoder families, for serving."""
+from . import encdec, layers, model_zoo, moe, params, recurrent, transformer
+from .layers import ApplyCtx
 
-__all__ = ["layers", "model_zoo", "moe", "params", "recurrent", "transformer"]
+__all__ = ["ApplyCtx", "encdec", "layers", "model_zoo", "moe", "params", "recurrent",
+           "transformer"]

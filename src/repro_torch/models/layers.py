@@ -1,12 +1,13 @@
-"""Shared transformer layers: RMSNorm, RoPE, gated MLPs and causal GQA
-attention (global or local; train, prefill and decode).
+"""Shared transformer layers: RMSNorm, RoPE, MLPs (with optional biases) and
+GQA attention (causal, local, full or cross; train, prefill and decode).
 
 The port's counterpart of ``repro.models.layers``, forward only.  Layouts are
 the reference's: activations (B, T, D), ``wq`` (D, H, hd), caches
 (B, S, KVH, hd).  Prefill and train attention is plain einsum and softmax over
-query chunks, as the reference computes it outside Pallas; decode attention
-goes through ``kernels.ops.decode_attention`` (K2).  Caches are updated in
-place and returned, which spares a copy of every cache per step.
+query chunks, as the reference computes it outside Pallas; decode attention,
+over the self cache and over the cross cache alike, goes through
+``kernels.ops.decode_attention`` (K2).  Caches are updated in place and
+returned, which spares a copy of every cache per step.
 """
 from __future__ import annotations
 
@@ -80,16 +81,22 @@ def mlp_spec(cfg: ModelConfig) -> Dict[str, P]:
     spec = {"wi": P((d, f), ("embed", "mlp")), "wo": P((f, d), ("mlp", "embed"))}
     if cfg.act in ("swiglu", "geglu"):
         spec["wg"] = P((d, f), ("embed", "mlp"))
+    if cfg.use_bias:
+        spec["bi"] = P((f,), ("mlp",), init="zeros")
+        spec["bo"] = P((d,), ("embed",), init="zeros")
     return spec
 
 
 def mlp(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor) -> Tensor:
     up = x @ params["wi"]
+    if cfg.use_bias:
+        up = up + params["bi"]
     if cfg.act in ("swiglu", "geglu"):
         h = activate(cfg.act, x @ params["wg"], up)
     else:
         h = activate(cfg.act, up, up)
-    return h @ params["wo"]
+    y = h @ params["wo"]
+    return y + params["bo"] if cfg.use_bias else y
 
 
 # ---------------------------------------------------------------------------
@@ -98,13 +105,26 @@ def mlp(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor) -> Tensor:
 
 
 def attention_spec(cfg: ModelConfig) -> Dict[str, P]:
+    """Self and cross attention share one layout."""
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    return {
+    spec = {
         "wq": P((d, h, hd), ("embed", "heads", "head_dim")),
         "wk": P((d, kvh, hd), ("embed", "kv_heads", "head_dim")),
         "wv": P((d, kvh, hd), ("embed", "kv_heads", "head_dim")),
         "wo": P((h, hd, d), ("heads", "head_dim", "embed")),
     }
+    if cfg.use_bias:
+        spec["bq"] = P((h, hd), ("heads", "head_dim"), init="zeros")
+        spec["bk"] = P((kvh, hd), ("kv_heads", "head_dim"), init="zeros")
+        spec["bv"] = P((kvh, hd), ("kv_heads", "head_dim"), init="zeros")
+    return spec
+
+
+def _project(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor, name: str) -> Tensor:
+    """(B, T, D) -> (B, T, heads, hd) by ``w<name>``, plus ``b<name>`` under
+    ``use_bias``."""
+    y = torch.einsum("btd,dhk->bthk", x, params["w" + name])
+    return y + params["b" + name] if cfg.use_bias else y
 
 
 def _attn_chunk(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
@@ -116,11 +136,11 @@ def _attn_chunk(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
 
 
 def _full_attention(
-    cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor, *, window: int,
+    cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor, *, causal: bool, window: int,
     q_positions: Tensor, kv_positions: Tensor, ctx: ApplyCtx,
 ) -> Tensor:
-    """Causal chunked-query attention: q (B, T, H, hd), k, v (B, S, KVH, hd)
-    post-rope.  Returns (B, T, H, hd)."""
+    """Chunked-query attention, causal or not: q (B, T, H, hd), k, v
+    (B, S, KVH, hd) post-rope.  Returns (B, T, H, hd)."""
     b, t, h, hd = q.shape
     kvh = cfg.num_kv_heads
     qg = (q * hd**-0.5).reshape(b, t, kvh, h // kvh, hd).float()
@@ -128,7 +148,9 @@ def _full_attention(
 
     def mask_for(qpos: Tensor) -> Tensor:
         rel = qpos[:, None] - kv_positions[None, :]  # (qc, S)
-        ok = rel >= 0
+        ok = torch.ones(rel.shape, dtype=torch.bool, device=rel.device)
+        if causal:
+            ok &= rel >= 0
         if window > 0:
             ok &= rel < window
         return torch.where(ok, 0.0, NEG_INF).float()
@@ -159,30 +181,45 @@ def attention(
     x: Tensor,  # (B, T, D)
     *,
     ctx: ApplyCtx,
+    causal: bool = True,
     window: int = 0,
     positions: Optional[Tensor] = None,  # (T,) absolute positions
     length: Optional[Tensor] = None,  # 0-d int32: tokens already in the cache
     cache: Optional[Dict[str, Tensor]] = None,
+    kv_x: Optional[Tensor] = None,  # cross attention's source (B, S_enc, D)
+    is_cross: bool = False,  # decode reads the prefilled cross cache
 ) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
-    """Causal GQA self-attention for all modes.  Returns (y, cache), the
-    cache written in place in prefill and decode."""
+    """GQA attention for all modes.  Returns (y, cache), the cache written in
+    place in prefill and decode.
+
+    Cross attention (``kv_x`` given, or ``is_cross``) projects k and v from
+    ``kv_x``, ropes neither q nor k, and is not causal; prefill writes the whole
+    cross cache, and a decode step reads all of it and writes nothing."""
     b, t, _ = x.shape
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = torch.einsum("btd,dhk->bthk", x, params["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"])
+    cross = is_cross or kv_x is not None
+    if ctx.mode != "decode" and cross and kv_x is None:
+        raise ValueError("cross attention outside decode requires kv_x (enc_out)")
+    q = _project(cfg, params, x, "q")
+    k = v = None  # a decode step's cross attention makes no new k, v
+    if not (cross and kv_x is None):
+        src = x if kv_x is None else kv_x
+        k, v = _project(cfg, params, src, "k"), _project(cfg, params, src, "v")
     if positions is None:
         positions = torch.arange(t, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if not cross:  # cross attention keeps the encoder's own representation
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if ctx.mode in ("train", "prefill"):
         kv_pos = torch.arange(k.shape[1], device=x.device)
-        out = _full_attention(cfg, q, k, v, window=window, q_positions=positions,
-                              kv_positions=kv_pos, ctx=ctx)
+        out = _full_attention(cfg, q, k, v, causal=causal and not cross, window=window,
+                              q_positions=positions, kv_positions=kv_pos, ctx=ctx)
         if ctx.mode == "prefill" and cache is not None:
             s = cache["k"].shape[1]
-            if window > 0 and t > s:
+            if cross:
+                cache["k"].copy_(k)
+                cache["v"].copy_(v)
+            elif window > 0 and t > s:
                 # keep the trailing window, placed at ring slots pos % s
                 shift = (t - s) % s
                 cache["k"].copy_(torch.roll(k[:, -s:], shift, dims=1))
@@ -194,14 +231,17 @@ def attention(
     elif ctx.mode == "decode":
         assert cache is not None and length is not None
         s = cache["k"].shape[1]
-        # the ring slot of a window, else the next row; a device index, no sync
-        slot = (length % s if window > 0 else length).long().reshape(1)
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-        # The valid rows are a prefix of the cache: rows 0..length before a
-        # ring wraps, all s after; softmax ignores their order, and the cached
-        # keys carry their RoPE already.
-        valid = torch.clamp(length + 1, max=s).to(torch.int32).reshape(1).expand(b)
+        if cross:  # every row of the cross cache is valid
+            valid = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        else:
+            # the ring slot of a window, else the next row; a device index, no sync
+            slot = (length % s if window > 0 else length).long().reshape(1)
+            cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+            # The valid rows are a prefix of the cache: rows 0..length before a
+            # ring wraps, all s after; softmax ignores their order, and the
+            # cached keys carry their RoPE already.
+            valid = torch.clamp(length + 1, max=s).to(torch.int32).reshape(1).expand(b)
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)[:, None]
     else:
         raise ValueError(ctx.mode)

@@ -1,9 +1,11 @@
 """Model zoo: config -> spec, parameters, apply, and parameter counts.
 
-The port's counterpart of ``repro.models.model_zoo`` for the decoder-only
-families it runs (dense, hybrid and MoE).  ``init_model_params`` and
-``init_cache`` are entry points: they run on the card unless a device is
-named.
+The port's counterpart of ``repro.models.model_zoo`` for the families it
+runs (dense, vision, hybrid, MoE and encoder-decoder).  A batch holds
+``tokens`` and, by family, ``vision`` (B, vision_patches, d_model) patch
+embeddings or ``frames`` (B, encoder_seq, d_model) for the encoder.
+``init_model_params`` and ``init_cache`` are entry points: they run on the
+card unless a device is named.
 """
 from __future__ import annotations
 
@@ -15,13 +17,16 @@ from torch import Tensor
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import transformer
+from . import encdec, transformer
 from .layers import ApplyCtx
 from .params import init_params, leaves, param_count as spec_param_count
 
 
 def model_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    return transformer.lm_spec(cfg)
+    spec = transformer.lm_spec(cfg)
+    if cfg.family == "encdec":
+        spec["encoder"] = encdec.encoder_spec(cfg)
+    return spec
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -50,13 +55,22 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
                    for p in leaves(spec)))
 
 
+def _encode(cfg: ModelConfig, params, batch: Dict[str, Tensor], ctx: ApplyCtx) -> Optional[Tensor]:
+    if cfg.family != "encdec":
+        return None
+    return encdec.encode(cfg, params["encoder"], batch["frames"], ctx=ctx)
+
+
 def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor], *, ctx: ApplyCtx):
     """(logits, aux_loss) for a batch dict (forward only)."""
-    return transformer.forward_train(cfg, params, batch["tokens"], ctx=ctx)
+    return transformer.forward_train(cfg, params, batch["tokens"], ctx=ctx,
+                                     vision=batch.get("vision"),
+                                     enc_out=_encode(cfg, params, batch, ctx))
 
 
 def prefill(cfg: ModelConfig, params, batch: Dict[str, Tensor], cache, *, ctx: ApplyCtx):
-    return transformer.prefill(cfg, params, batch["tokens"], cache, ctx=ctx)
+    return transformer.prefill(cfg, params, batch["tokens"], cache, ctx=ctx,
+                               vision=batch.get("vision"), enc_out=_encode(cfg, params, batch, ctx))
 
 
 def decode_step(cfg: ModelConfig, params, token: Tensor, cache, *, ctx: ApplyCtx):

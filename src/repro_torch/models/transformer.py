@@ -1,7 +1,9 @@
 """LM assembly: embed -> layer-pattern cycles -> norm -> head.
 
-The port's counterpart of ``repro.models.transformer`` for the dense,
-hybrid (RG-LRU + local attention) and MoE families.  Parameters and caches keep the
+The port's counterpart of ``repro.models.transformer`` for the dense, vision
+(patch embeddings prepended), hybrid (RG-LRU + local attention), MoE and
+encoder-decoder (``enc`` and ``xdec`` blocks; the encoder's assembly is
+``encdec``) families.  Parameters and caches keep the
 reference's layout: one stacked tree per pattern position with a leading
 ``n_cycles`` axis, plus the unrolled remainder layers.  The layer loop is a
 Python loop over cycles; caches are written in place through views of the
@@ -30,7 +32,7 @@ from .layers import (
 )
 from .params import P, stack_spec, tree_map
 
-PORTED_KINDS = ("dense", "moe", "localattn", "rglru")
+PORTED_KINDS = ("dense", "moe", "localattn", "enc", "xdec", "rglru")
 
 
 def _check_kind(kind: str) -> None:
@@ -50,6 +52,9 @@ def block_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
         spec = {"ln1": rmsnorm_spec(d), "mix": rec.rglru_spec(cfg)}
     else:
         spec = {"ln1": rmsnorm_spec(d), "attn": attention_spec(cfg)}
+    if kind == "xdec":
+        spec["lnx"] = rmsnorm_spec(d)
+        spec["xattn"] = attention_spec(cfg)
     if kind == "moe":
         spec["ln2"] = rmsnorm_spec(d)
         spec["ffn"] = moe_lib.moe_spec(cfg)
@@ -60,10 +65,15 @@ def block_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
-                     device) -> Dict[str, Tensor]:
+                     device) -> Dict[str, Any]:
+    """A block's decode cache; an ``xdec`` block's is {"self", "cross"}, the
+    cross part ``encoder_seq`` rows deep."""
     _check_kind(kind)
     if kind == "rglru":
         return rec.init_rglru_cache(cfg, batch, device)
+    if kind == "xdec":
+        return {"self": init_attention_cache(cfg, batch, max_len, dtype, device),
+                "cross": init_attention_cache(cfg, batch, cfg.encoder_seq, dtype, device)}
     window = cfg.local_window if kind == "localattn" else 0
     return init_attention_cache(cfg, batch, max_len, dtype, device, window=window)
 
@@ -77,19 +87,30 @@ def block_apply(
     ctx: ApplyCtx,
     positions: Tensor,
     length: Optional[Tensor],
-    cache: Optional[Dict[str, Tensor]],
+    cache: Optional[Dict[str, Any]],
+    enc_out: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Optional[Tensor]]:
     """One block; its cache, if any, is updated in place.  Returns (x, aux):
     an MoE block's load-balance loss in train mode, else None (prefill and
-    decode discard it, as the reference's jitted calls drop it)."""
+    decode discard it, as the reference's jitted calls drop it).  An ``enc``
+    block attends without a causal mask; an ``xdec`` block then attends to
+    ``enc_out`` (train and prefill) or to its prefilled cross cache
+    (decode, ``enc_out`` None), without rope."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if kind == "rglru":
         y, _ = rec.rglru_block(cfg, params["mix"], h, ctx=ctx, cache=cache)
     else:
         window = cfg.local_window if kind == "localattn" else 0
-        y, _ = attention(cfg, params["attn"], h, ctx=ctx, window=window,
-                         positions=positions, length=length, cache=cache)
+        self_cache = cache["self"] if kind == "xdec" and cache is not None else cache
+        y, _ = attention(cfg, params["attn"], h, ctx=ctx, causal=kind != "enc", window=window,
+                         positions=positions, length=length, cache=self_cache)
     x = x + y
+    if kind == "xdec":
+        h = rmsnorm(params["lnx"], x, cfg.norm_eps)
+        y, _ = attention(cfg, params["xattn"], h, ctx=ctx, causal=False, positions=positions,
+                         length=length, cache=cache["cross"] if cache is not None else None,
+                         kv_x=enc_out if ctx.mode != "decode" else None, is_cross=True)
+        x = x + y
     aux = None
     if "ffn" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
@@ -114,9 +135,7 @@ def _cycles_and_rest(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
 
 
 def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.vision_patches or cfg.use_bias or cfg.family not in ("dense", "hybrid", "moe"):
-        raise ValueError(f"{cfg.name}: only the dense, hybrid and MoE families, without "
-                         f"biases, are ported")
+    """The decoder's spec (an encdec model's encoder is ``encdec.encoder_spec``)."""
     d, v = cfg.d_model, cfg.vocab_size
     n_cycles, rest = _cycles_and_rest(cfg)
     spec: Dict[str, Any] = {
@@ -127,6 +146,8 @@ def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["head"] = P((d, v), ("embed", "vocab"), scale=0.02)
+    if cfg.vision_patches:
+        spec["vision_proj"] = P((d, d), ("embed", None))
     return spec
 
 
@@ -135,10 +156,15 @@ def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params, tokens: Tensor) -> Tensor:
+def _embed(cfg: ModelConfig, params, tokens: Tensor, vision: Optional[Tensor] = None) -> Tensor:
+    """Token embeddings, after the projected patch embeddings ``vision``
+    (B, P, D) when given."""
     # the scale is cast to the embedding's dtype first: 50.5, not 50.596, in bf16
     emb = params["embed"]
-    return emb[tokens] * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
+    x = emb[tokens] * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
+    if vision is None:
+        return x
+    return torch.cat([vision.to(x.dtype) @ params["vision_proj"], x], dim=1)
 
 
 def _head(cfg: ModelConfig, params, x: Tensor) -> Tensor:
@@ -158,7 +184,8 @@ def _at(tree, i: int):
 
 
 def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions: Tensor,
-               length: Optional[Tensor], cache: Optional[Dict[str, Any]]) -> Tuple[Tensor, Tensor]:
+               length: Optional[Tensor], cache: Optional[Dict[str, Any]],
+               enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """The layer loop: every cycle of the pattern, then the remainder.
     Returns (x, the sum of the blocks' aux losses)."""
     n_cycles, rest = _cycles_and_rest(cfg)
@@ -169,7 +196,8 @@ def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions:
     ] + [(kind, params["rest"][j], cache["rest"][j] if use else None) for j, kind in enumerate(rest)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p, c in layers:
-        x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length, cache=c)
+        x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length, cache=c,
+                           enc_out=enc_out)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -191,25 +219,31 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dic
 
 
 @torch.no_grad()
-def forward_train(cfg: ModelConfig, params, tokens: Tensor, *,
-                  ctx: ApplyCtx) -> Tuple[Tensor, Tensor]:
+def forward_train(cfg: ModelConfig, params, tokens: Tensor, *, ctx: ApplyCtx,
+                  vision: Optional[Tensor] = None,
+                  enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Full-sequence forward (no gradient yet).  Returns (logits (B,T,V), aux),
-    aux the sum of the MoE blocks' load-balance losses (0 without any)."""
-    x = _embed(cfg, params, tokens)
+    aux the sum of the MoE blocks' load-balance losses (0 without any); with
+    ``vision`` T counts the patches before the tokens."""
+    x = _embed(cfg, params, tokens, vision)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None)
+    x, aux = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None,
+                        enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _head(cfg, params, x), aux
 
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: Tensor, cache: Dict[str, Any], *,
-            ctx: ApplyCtx) -> Tuple[Tensor, Dict[str, Any]]:
-    """Fill the cache in place; returns (last-position logits (B, V), cache)."""
-    x = _embed(cfg, params, tokens)
+            ctx: ApplyCtx, vision: Optional[Tensor] = None,
+            enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Dict[str, Any]]:
+    """Fill the cache in place; returns (last-position logits (B, V), cache).
+    ``cache["length"]`` counts the vision patches and the tokens."""
+    x = _embed(cfg, params, tokens, vision)
     t = x.shape[1]
     positions = torch.arange(t, device=x.device)
-    x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=cache)
+    x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=cache,
+                      enc_out=enc_out)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     cache["length"].fill_(t)
     return _head(cfg, params, x)[:, 0], cache

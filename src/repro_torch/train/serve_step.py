@@ -34,10 +34,13 @@ def make_decode_step(cfg: ModelConfig, *, ctx: ApplyCtx) -> Callable:
 def generate(cfg: ModelConfig, params, batch: Dict[str, Tensor], max_len: int, steps: int, *,
              ctx_prefill: ApplyCtx, ctx_decode: ApplyCtx) -> Tensor:
     """Greedy generation of ``steps`` tokens (B, steps) on the tokens' device,
-    with a float32 cache as the reference."""
+    with a float32 cache as the reference.  ``max_len`` counts text rows: the
+    cache holds ``cfg.vision_patches`` rows more for a vision prefix (the
+    reference's cache is ``max_len`` deep and its prefill fails when the
+    prefix does not fit)."""
     tokens = batch["tokens"]
-    cache = model_zoo.init_cache(cfg, tokens.shape[0], max_len, torch.float32,
-                                 device=tokens.device)
+    cache = model_zoo.init_cache(cfg, tokens.shape[0], cfg.vision_patches + max_len,
+                                 torch.float32, device=tokens.device)
     token, cache = make_prefill_step(cfg, ctx=ctx_prefill)(params, batch, cache)
     outs = [token]
     decode_fn = make_decode_step(cfg, ctx=ctx_decode)

@@ -1,9 +1,12 @@
-"""The port's serving path (dense and hybrid families) against the reference.
+"""The port's serving path (dense, vision, hybrid, MoE and encoder-decoder
+families) against the reference.
 
 Weights are drawn with numpy from a seed along the reference's parameter
 spec, as its ``init_params`` draws them, and cross over to the port through
 ``repro_torch.convert.model_params_from_jax``; inputs are made with numpy
-too and handed to both packages.  The reference's model calls are jitted.
+too and handed to both packages.  The reference initialises biases to zeros;
+here an arch with biases (``use_bias``) gets them drawn from N(0, 0.1^2), so
+that the tests see them.  The reference's model calls are jitted.
 Everything runs in float32 on the CPU, where the port's kernel wrappers take
 their plain versions.
 
@@ -37,30 +40,63 @@ from repro_torch.models.params import tree_map as ttree_map
 from repro_torch.models import recurrent as tr
 from repro_torch.train import serve_step as tss
 
-ARCH_NAMES = ["recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-3b-a800m", "arctic-480b"]
-DENSE_FFN_NAMES = ARCH_NAMES[:2]  # geglu and swiglu; the MoE FFNs are tests/test_torch_moe.py's
+ARCH_NAMES = ["recurrentgemma-2b", "tinyllama-1.1b", "granite-moe-3b-a800m", "arctic-480b",
+              "whisper-medium", "internvl2-1b", "yi-9b", "command-r-35b"]
+# geglu and swiglu, swiglu with biases, and the non-gated gelu; the MoE FFNs
+# are tests/test_torch_moe.py's
+DENSE_FFN_NAMES = ["recurrentgemma-2b", "tinyllama-1.1b", "internvl2-1b", "whisper-medium"]
 # recurrentgemma at a 4-token window and 5 layers: one (rglru, rglru,
 # localattn) cycle plus the two unrolled rglru layers of the full model's
-# tail; the MoE archs at the reduced configs' dropless capacity factor 4.0
-OVERRIDES = {"recurrentgemma-2b": dict(local_window=4, num_layers=5), "tinyllama-1.1b": {},
-             "granite-moe-3b-a800m": {}, "arctic-480b": {}}
+# tail; the MoE archs at the reduced configs' dropless capacity factor 4.0;
+# the others as ``reduced`` makes them (whisper: 2 encoder layers over 16
+# frames; internvl2: 8 vision patches)
+OVERRIDES = {"recurrentgemma-2b": dict(local_window=4, num_layers=5)}
+BIAS_SCALE = 0.1  # the standard deviation of drawn biases
 MOD_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+def draw_params(spec, draw_biases, seed=0):
+    """Numpy leaves along a reference spec: normal(0, scale), ones and zeros
+    as the reference initialises them, except that with ``draw_biases`` the
+    zero-initialised leaves (the biases) come from N(0, BIAS_SCALE^2)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(p):
+        if p.init == "ones" or (p.init == "zeros" and not draw_biases):
+            return np.full(p.shape, float(p.init == "ones"), np.float32)
+        scale = BIAS_SCALE if p.init == "zeros" else p.scale
+        return (scale * rng.normal(size=p.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map(draw, spec, is_leaf=lambda x: isinstance(x, JP))
+
+
+def extra_inputs(cfg, b, seed=0):
+    """A vision model's patch embeddings and an encoder-decoder's frames, as
+    numpy N(0, 1) draws; {} for a token-only arch."""
+    rng = np.random.default_rng(seed + 1000)
+    out = {}
+    if cfg.vision_patches:
+        out["vision"] = rng.normal(size=(b, cfg.vision_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def batches(tokens, extras):
+    """One numpy batch as the reference's and the port's batch dicts."""
+    batch = dict(extras, tokens=tokens)
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.as_tensor(v) for k, v in batch.items()})
 
 
 @functools.lru_cache(maxsize=None)
 def _model(name):
     """(reference config, port config, reference params, port params)."""
-    jcfg = jreduced(ARCHS[name], **OVERRIDES[name])
-    tcfg = reduced(get_arch(name), **OVERRIDES[name])
-    rng = np.random.default_rng(0)
+    jcfg = jreduced(ARCHS[name], **OVERRIDES.get(name, {}))
+    tcfg = reduced(get_arch(name), **OVERRIDES.get(name, {}))
+    tree = draw_params(jz.model_spec(jcfg), jcfg.use_bias)
 
-    def draw(p):
-        if p.init in ("zeros", "ones"):
-            return np.full(p.shape, float(p.init == "ones"), np.float32)
-        return (p.scale * rng.normal(size=p.shape)).astype(np.float32)
-
-    tree = jax.tree_util.tree_map(draw, jz.model_spec(jcfg), is_leaf=lambda x: isinstance(x, JP))
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
     return jcfg, tcfg, jp, convert.model_params_from_jax(tree, "cpu")
 
@@ -71,9 +107,9 @@ def _jitted(name, fn, mode):
     jcfg = _model(name)[0]
     ctx = jl.ApplyCtx(mode=mode)
     if fn == "forward_train":
-        return jax.jit(lambda p, t: jz.forward_train(jcfg, p, {"tokens": t}, ctx=ctx)[0])
+        return jax.jit(lambda p, batch: jz.forward_train(jcfg, p, batch, ctx=ctx)[0])
     if fn == "prefill":
-        return jax.jit(lambda p, t, c: jz.prefill(jcfg, p, {"tokens": t}, c, ctx=ctx))
+        return jax.jit(lambda p, batch, c: jz.prefill(jcfg, p, batch, c, ctx=ctx))
     return jax.jit(lambda p, t, c: jz.decode_step(jcfg, p, t, c, ctx=ctx))
 
 
@@ -123,6 +159,8 @@ def test_rope_matches_reference():
 def test_mlp_matches_reference(name):
     jcfg, tcfg, _, _ = _model(name)
     jp, tp = _first_block(name, 0)
+    if tcfg.use_bias:  # drawn, not the reference's zeros
+        assert float(tp["ffn"]["bi"].abs().min()) > 0 and float(tp["ffn"]["bo"].abs().min()) > 0
     x = _x((2, 5, 64))
     want = jl.mlp(jcfg, jp["ffn"], jnp.asarray(x))
     _close(tl.mlp(tcfg, tp["ffn"], torch.as_tensor(x)), want, MOD_TOL)
@@ -204,36 +242,44 @@ def test_rglru_block_prefill_and_decode_match_reference():
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_prefill_and_decode_match_reference(name):
-    """Prefill 8 tokens (past recurrentgemma's 4-token window), then decode
-    4, against the reference's logits; also the train-mode forward."""
+    """Prefill 8 tokens (past recurrentgemma's 4-token window; after
+    internvl2's 8 patches; over whisper's 16 encoded frames), then decode 4,
+    against the reference's logits; also the train-mode forward."""
     jcfg, tcfg, jp, tp = _model(name)
     b, t, k = 2, 12, 8
     toks = _tokens(jcfg, b, t)
-    want = _jitted(name, "forward_train", "train")(jp, jnp.asarray(toks))
-    got, _ = tz.forward_train(tcfg, tp, {"tokens": torch.as_tensor(toks)}, ctx=tl.ApplyCtx(mode="train"))
+    extras = extra_inputs(jcfg, b)
+    jbatch, tbatch = batches(toks, extras)
+    want = _jitted(name, "forward_train", "train")(jp, jbatch)
+    got, _ = tz.forward_train(tcfg, tp, tbatch, ctx=tl.ApplyCtx(mode="train"))
+    assert got.shape == (b, jcfg.vision_patches + t, jcfg.vocab_size)
     _close(got, want, MODEL_TOL)
 
     jcache = jz.init_cache(jcfg, b, 32, jnp.float32)
     tcache = tz.init_cache(tcfg, b, 32, torch.float32, device="cpu")
-    want, jcache = _jitted(name, "prefill", "prefill")(jp, jnp.asarray(toks[:, :k]), jcache)
-    got, tcache = tz.prefill(tcfg, tp, {"tokens": torch.as_tensor(toks[:, :k])}, tcache,
-                             ctx=tl.ApplyCtx(mode="prefill"))
+    jbatch, tbatch = batches(toks[:, :k], extras)
+    want, jcache = _jitted(name, "prefill", "prefill")(jp, jbatch, jcache)
+    got, tcache = tz.prefill(tcfg, tp, tbatch, tcache, ctx=tl.ApplyCtx(mode="prefill"))
     _close(got, want, MODEL_TOL)
     for j in range(k, t):
         want, jcache = _jitted(name, "decode_step", "decode")(jp, jnp.asarray(toks[:, j : j + 1]), jcache)
         got, tcache = tz.decode_step(tcfg, tp, torch.as_tensor(toks[:, j : j + 1]), tcache,
                                      ctx=tl.ApplyCtx(mode="decode"))
         _close(got, want, MODEL_TOL)
-    assert int(tcache["length"]) == int(jcache["length"]) == t
+    assert int(tcache["length"]) == int(jcache["length"]) == jcfg.vision_patches + t
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_generate_matches_reference_tokens(name):
+    """8 greedy tokens after 6-token prompts.  The port's ``max_len`` counts
+    text rows and its cache adds the vision prefix's; the reference's cache
+    is ``max_len`` deep, so it is given the prefix's rows explicitly."""
     jcfg, tcfg, jp, tp = _model(name)
     toks = _tokens(jcfg, 2, 6, seed=1)
-    want = jss.generate(jcfg, jp, {"tokens": jnp.asarray(toks)}, 16, 8,
+    jbatch, tbatch = batches(toks, extra_inputs(jcfg, 2, seed=1))
+    want = jss.generate(jcfg, jp, jbatch, jcfg.vision_patches + 16, 8,
                         ctx_prefill=jl.ApplyCtx(mode="prefill"), ctx_decode=jl.ApplyCtx(mode="decode"))
-    got = tss.generate(tcfg, tp, {"tokens": torch.as_tensor(toks)}, 16, 8,
+    got = tss.generate(tcfg, tp, tbatch, 16, 8,
                        ctx_prefill=tl.ApplyCtx(mode="prefill"), ctx_decode=tl.ApplyCtx(mode="decode"))
     assert got.dtype == torch.int32 and got.shape == (2, 8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -242,18 +288,84 @@ def test_generate_matches_reference_tokens(name):
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_decode_matches_teacher_forcing(name):
     """The port on its own: prefill(t[:k]) + teacher-forced decode steps
-    reproduce its full-sequence forward (tests/test_models.py's property),
-    here on the port's own initialisation."""
+    reproduce its full-sequence forward (tests/test_models.py's property,
+    whose logits sit after the vision prefix), here on the port's own
+    initialisation with drawn patches and frames."""
     _, tcfg, _, _ = _model(name)
     params = tz.init_model_params(tcfg, seed=3, device="cpu")
-    toks = torch.as_tensor(_tokens(tcfg, 2, 12, seed=2))
-    full, _ = tz.forward_train(tcfg, params, {"tokens": toks}, ctx=tl.ApplyCtx(mode="train"))
+    toks = _tokens(tcfg, 2, 12, seed=2)
+    extras = extra_inputs(tcfg, 2, seed=2)
+    full, _ = tz.forward_train(tcfg, params, batches(toks, extras)[1], ctx=tl.ApplyCtx(mode="train"))
+    off = tcfg.vision_patches
     cache = tz.init_cache(tcfg, 2, 32, torch.float32, device="cpu")
-    lg, cache = tz.prefill(tcfg, params, {"tokens": toks[:, :8]}, cache, ctx=tl.ApplyCtx(mode="prefill"))
-    torch.testing.assert_close(lg, full[:, 7], rtol=2e-2, atol=2e-3)
+    lg, cache = tz.prefill(tcfg, params, batches(toks[:, :8], extras)[1], cache,
+                           ctx=tl.ApplyCtx(mode="prefill"))
+    torch.testing.assert_close(lg, full[:, off + 7], rtol=2e-2, atol=2e-3)
     for j in range(8, 11):
-        lg, cache = tz.decode_step(tcfg, params, toks[:, j : j + 1], cache, ctx=tl.ApplyCtx(mode="decode"))
-        torch.testing.assert_close(lg, full[:, j], rtol=2e-2, atol=2e-3)
+        lg, cache = tz.decode_step(tcfg, params, torch.as_tensor(toks[:, j : j + 1]), cache,
+                                   ctx=tl.ApplyCtx(mode="decode"))
+        torch.testing.assert_close(lg, full[:, off + j], rtol=2e-2, atol=2e-3)
+
+
+def test_vision_prefix_matches_reference():
+    """internvl2's embedding: the projected patches, then the scaled token
+    embeddings; prefill's positions and cache length run over both."""
+    from repro.models import transformer as jt
+    from repro_torch.models import transformer as tt
+
+    jcfg, tcfg, jp, tp = _model("internvl2-1b")
+    toks, extras = _tokens(jcfg, 2, 5, seed=4), extra_inputs(jcfg, 2, seed=4)
+    want = jt._embed(jcfg, jp, jnp.asarray(toks), jnp.asarray(extras["vision"]))
+    got = tt._embed(tcfg, tp, torch.as_tensor(toks), torch.as_tensor(extras["vision"]))
+    assert got.shape == (2, jcfg.vision_patches + 5, jcfg.d_model)
+    _close(got, want, MOD_TOL)
+    _close(got[:, :jcfg.vision_patches], extras["vision"] @ np.asarray(jp["vision_proj"]), MOD_TOL)
+    cache = tz.init_cache(tcfg, 2, 16, torch.float32, device="cpu")
+    tz.prefill(tcfg, tp, batches(toks, extras)[1], cache, ctx=tl.ApplyCtx(mode="prefill"))
+    assert int(cache["length"]) == jcfg.vision_patches + 5
+    k = cache["cycles"][0]["k"][0]  # layer 0's cache: rows of the patches and tokens, then zeros
+    assert bool(k[:, : jcfg.vision_patches + 5].abs().amax(dim=(-1, -2)).gt(0).all())
+    assert not bool(k[:, jcfg.vision_patches + 5 :].any())
+
+
+def test_latency_demo_sizes_the_cache_for_the_vision_prefix():
+    """reduced(internvl2-1b, vision_patches=64), 16-token prompts, 4 tokens:
+    the reference's latency demo sizes its cache prompt + gen + 8 = 28 rows, and
+    its prefill of 64 + 16 rows raises; the port's latency demo adds the
+    prefix's rows and generates the reference's tokens from a cache that
+    fits (the reference's generate given 92 rows)."""
+    from repro_torch.launch.serve import latency_demo
+
+    jcfg = jreduced(ARCHS["internvl2-1b"], vision_patches=64)
+    tcfg = reduced(get_arch("internvl2-1b"), vision_patches=64)
+    b, prompt, gen = 4, 16, 4
+    tree = draw_params(jz.model_spec(jcfg), jcfg.use_bias, seed=5)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = convert.model_params_from_jax(tree, "cpu")
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (b, prompt)).astype(np.int32)
+    jbatch = {"tokens": jnp.asarray(toks), "vision": jnp.zeros((b, 64, jcfg.d_model))}
+    with pytest.raises(ValueError, match="negative"):
+        jz.prefill(jcfg, jp, jbatch, jz.init_cache(jcfg, b, prompt + gen + 8, jnp.float32),
+                   ctx=jl.ApplyCtx(mode="prefill"))
+
+    out = latency_demo(tcfg, tp, batch=b, prompt_len=prompt, gen_len=gen)
+    assert out["cache"]["cycles"][0]["k"].shape[2] == 64 + prompt + gen + 8
+    assert int(out["cache"]["length"]) == 64 + prompt + gen - 1
+    want = jss.generate(jcfg, jp, jbatch, 64 + prompt + gen + 8, gen,
+                        ctx_prefill=jl.ApplyCtx(mode="prefill"), ctx_decode=jl.ApplyCtx(mode="decode"))
+    np.testing.assert_array_equal(out["tokens"].numpy(), np.asarray(want))
+
+
+def test_partitioned_serving_refuses_patches_and_frames():
+    """Partitioned serving passes token batches only, so it refuses the
+    vision and encoder-decoder archs before serving anything."""
+    import argparse
+
+    from repro_torch.launch.serve import partitioned_serving
+
+    for name in ("internvl2-1b", "whisper-medium"):
+        with pytest.raises(ValueError, match="no vision patches or frames"):
+            partitioned_serving(_model(name)[1], _model(name)[3], argparse.Namespace())
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)

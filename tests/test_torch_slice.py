@@ -113,7 +113,7 @@ STILL_TO_PORT = {
     "sched": {"ShardingConfig": 10},
     "hier": {"fit_hyperprior_sharded": 10},
     "distributed": {"ShardingConfig": 10},
-    "models": {"MeshInfo": 10, "ApplyCtx": 12, "encdec": 12},
+    "models": {"MeshInfo": 10},
     "configs": {"ALL_SHAPES": 13, "RunConfig": 13, "SHAPES": 13, "applicable": 13, "get_shape": 13},
 }
 # Pallas kernels and their oracle module, and the port's CUDA counterparts.
