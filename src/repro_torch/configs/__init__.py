@@ -1,8 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the architectures whose block kinds the port runs are registered (the
-dense, hybrid, MoE, encoder-decoder and vision families); the reference's
-ssm arch (xlstm-1.3b) waits for its family to be ported.
+Every architecture of the reference is registered: the dense, hybrid, MoE,
+encoder-decoder, vision and ssm families.
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from . import (
     smollm_135m,
     tinyllama_1_1b,
     whisper_medium,
+    xlstm_1_3b,
     yi_9b,
 )
 from .base import ModelConfig, ShapeConfig, reduced
@@ -24,7 +24,7 @@ from .base import ModelConfig, ShapeConfig, reduced
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
     for m in (whisper_medium, granite_moe_3b, arctic_480b, command_r_35b, smollm_135m,
-              tinyllama_1_1b, yi_9b, internvl2_1b, recurrentgemma_2b)
+              tinyllama_1_1b, yi_9b, xlstm_1_3b, internvl2_1b, recurrentgemma_2b)
 }
 
 

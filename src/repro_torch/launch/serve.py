@@ -6,8 +6,9 @@ The port's counterpart of ``repro.launch.serve``.  Two modes:
     and decode greedily, reporting prefill time and decode time per token;
   * **partitioned serving** (``--rounds N`` or ``--serve-smoke``): each
     round's request batch is split across heterogeneous (simulated) replicas
-    by the always-on estimation service (``repro_torch.serve.ServiceLoop``)
-    (token-only archs: no vision patches or frames yet).
+    by the always-on estimation service (``repro_torch.serve.ServiceLoop``).
+    Requests are token batches, as in the reference: a vision arch is
+    served on its text alone, and an encoder-decoder is refused.
     The driver reads the last-good split from the service's host slot,
     quantizes it to requests, really serves replica 0's shard on the model
     (prefill and greedy decode), and pushes every replica's measured time
@@ -90,12 +91,16 @@ def partitioned_serving(cfg, params, args) -> dict:
     Returns the service's counters and config, every published split, the
     requests of every round by replica, the final split and the oracle
     makespans (under the simulated replicas' true parameters) of the equal
-    and the learned split.  Serves token-only archs: it passes no vision
-    patches and no frames yet.
+    and the learned split.  Requests are token batches only, as the
+    reference's (``prefill(params, {"tokens": toks}, cache)``): a vision
+    arch prefills its text without the patch prefix, so the cache is
+    ``prompt_len + gen_len + 8`` rows deep; an encoder-decoder, which needs
+    its frames, is refused.
     """
-    if cfg.vision_patches or cfg.family == "encdec":
-        raise ValueError(f"{cfg.name}: partitioned serving passes no vision patches or frames "
-                         f"yet; serve it with the latency demo (--rounds 0)")
+    if cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: partitioned serving passes token batches only and an "
+                         f"encoder-decoder needs its audio frames; serve it with the latency "
+                         f"demo (--rounds 0), which passes zero frames")
     from .. import sched, serve
     from ..distributed.simulated_cluster import SimulatedCluster, WorkerSpec
 

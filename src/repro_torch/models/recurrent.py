@@ -1,9 +1,20 @@
-"""Recurrent sequence mixers: the RG-LRU block (Griffin / RecurrentGemma).
+"""Recurrent sequence mixers: mLSTM and sLSTM (xLSTM), and the RG-LRU block
+(Griffin / RecurrentGemma).
 
-The port's counterpart of the RG-LRU part of ``repro.models.recurrent``:
-prefill and train run the linear recurrence h_t = a_t h_{t-1} + b_t through
-``kernels.ops.lru_scan`` (K3); decode is its one elementwise step on the
-float32 state.  mLSTM and sLSTM (the xLSTM family) are not ported yet.
+The port's counterpart of ``repro.models.recurrent``.
+
+  * mLSTM: train and prefill run the stabilised parallel (quadratic) form,
+    chunked over queries as attention is; prefill then fills the decode
+    cache (C, n, m) from the whole sequence; decode is the one-step
+    stabilised recurrence.
+  * sLSTM: the recurrent h feeds the gates, so train and prefill loop over
+    time on the device (no host read inside the loop); decode is one step.
+  * RG-LRU: prefill and train run the linear recurrence h_t = a_t h_{t-1} +
+    b_t through ``kernels.ops.lru_scan`` (K3); decode is its one elementwise
+    step on the float32 state.
+
+Every block writes its cache's state in place in prefill and decode; the
+states are float32 whatever the parameters' dtype.
 """
 from __future__ import annotations
 
@@ -15,8 +26,221 @@ from torch import Tensor
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import ApplyCtx
+from .layers import NEG_INF, ApplyCtx
 from .params import P
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+def mlstm_spec(cfg: ModelConfig) -> Dict[str, P]:
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h  # cell width == d_model (projection factor 1)
+    return {
+        "wq": P((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": P((d, h, hd), ("embed", "heads", "head_dim")),
+        "wv": P((d, h, hd), ("embed", "heads", "head_dim")),
+        "wif": P((d, 2 * h), ("embed", None), scale=0.01),  # i, f gate pre-activations
+        "wog": P((d, h, hd), ("embed", "heads", "head_dim"), scale=0.01),
+        "wo": P((h, hd, d), ("heads", "head_dim", "embed")),
+        "bif": P((2 * h,), (None,), init="zeros"),
+    }
+
+
+def _mlstm_qkv(cfg: ModelConfig, params, x: Tensor):
+    """q, k, v and the output gate o (B, H, T, hd) in x's dtype; log i and
+    log f (B, H, T) in float32, cast after the gates are computed in x's
+    dtype, as the reference casts them."""
+    h = cfg.num_heads
+    hd = x.shape[-1] // h
+    q = torch.einsum("btd,dhk->bhtk", x, params["wq"])
+    # the scale is cast to the activations' dtype first, as JAX's weak scalar is
+    k = torch.einsum("btd,dhk->bhtk", x, params["wk"]) * torch.tensor(
+        hd**-0.5, dtype=x.dtype, device=x.device)
+    v = torch.einsum("btd,dhk->bhtk", x, params["wv"])
+    gates = x @ params["wif"] + params["bif"]  # (B, T, 2H)
+    log_i = gates[..., :h].transpose(1, 2).float()
+    log_f = F.logsigmoid(gates[..., h:]).transpose(1, 2).float()
+    o = torch.sigmoid(torch.einsum("btd,dhk->bhtk", x, params["wog"]))
+    return q, k, v, log_i, log_f, o
+
+
+def _mlstm_parallel(cfg: ModelConfig, params, x: Tensor, ctx: ApplyCtx):
+    """The stabilised quadratic form, chunked over queries by ``ctx.q_chunk``
+    (one chunk of T when T is not a multiple of it).  Returns (y, (k, v,
+    log_i, fcum)), what ``mlstm_final_state`` needs."""
+    t = x.shape[1]
+    q, k, v, log_i, log_f, o = _mlstm_qkv(cfg, params, x)
+    fcum = torch.cumsum(log_f, dim=-1)  # (B, H, T): F_t = sum_{s <= t} log f_s
+    k32, v32 = k.float(), v.float()
+    pos = torch.arange(t, device=x.device)
+
+    def chunk_out(q_c, fcum_c, tpos_c):
+        # the decay matrix D~[t, s] = F_t - F_s + log i_s for s <= t
+        dmat = fcum_c[..., :, None] - fcum[..., None, :] + log_i[..., None, :]
+        dmat = torch.where(tpos_c[:, None] >= pos[None, :], dmat, NEG_INF)
+        m = torch.clamp(dmat.amax(dim=-1, keepdim=True), min=-1e30)  # (B, H, qc, 1)
+        scores = torch.einsum("bhqk,bhsk->bhqs", q_c.float(), k32) * torch.exp(dmat - m)
+        norm = torch.maximum(scores.sum(dim=-1, keepdim=True).abs(), torch.exp(-m))
+        return torch.einsum("bhqs,bhsk->bhqk", scores / norm, v32)
+
+    chunk = min(ctx.q_chunk, t)
+    if t % chunk != 0:
+        chunk = t
+    hh = torch.cat([chunk_out(q[:, :, s:s + chunk], fcum[..., s:s + chunk], pos[s:s + chunk])
+                    for s in range(0, t, chunk)], dim=2)
+    hh = (o.float() * hh).to(x.dtype)  # (B, H, T, hd)
+    return torch.einsum("bhtk,hkd->btd", hh, params["wo"]), (k32, v32, log_i, fcum)
+
+
+def mlstm_final_state(k32: Tensor, v32: Tensor, log_i: Tensor, fcum: Tensor) -> Dict[str, Tensor]:
+    """The state (C, n, m) after a parallel pass, from its float32 k and v:
+    what a prefill leaves in the decode cache."""
+    w_log = fcum[..., -1:] - fcum + log_i  # (B, H, T): the weight of step s in C_T
+    m = w_log.amax(dim=-1)  # (B, H)
+    w = torch.exp(w_log - m[..., None])
+    c = torch.einsum("bht,bhtk,bhtl->bhkl", w, v32, k32)
+    n = torch.einsum("bht,bhtk->bhk", w, k32)
+    return {"C": c, "n": n, "m": m}
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> Dict[str, Tensor]:
+    h = cfg.num_heads
+    hd = cfg.d_model // h
+    return {
+        "C": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, h, hd), dtype=torch.float32, device=device),
+        "m": torch.full((batch, h), -1e30, dtype=torch.float32, device=device),
+    }
+
+
+def _mlstm_step(cfg: ModelConfig, params, x: Tensor, cache: Dict[str, Tensor]):
+    """One stabilised recurrent step of x (B, 1, D) from the cache's state.
+    Returns (y, the new state)."""
+    q, k, v, log_i, log_f, o = _mlstm_qkv(cfg, params, x)  # T == 1
+    q1, k1, v1 = (a[:, :, 0].float() for a in (q, k, v))  # (B, H, hd)
+    li, lf = log_i[..., 0], log_f[..., 0]  # (B, H)
+    m_prev = cache["m"]
+    m_new = torch.maximum(lf + m_prev, li)
+    i_p = torch.exp(li - m_new)[..., None]
+    f_p = torch.exp(lf + m_prev - m_new)[..., None]
+    c_new = f_p[..., None] * cache["C"] + i_p[..., None] * (v1[..., :, None] * k1[..., None, :])
+    n_new = f_p * cache["n"] + i_p * k1
+    num = torch.einsum("bhkl,bhl->bhk", c_new, q1)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", n_new, q1).abs()[..., None],
+                        torch.exp(-m_new)[..., None])
+    hh = (o[:, :, 0].float() * num / den).to(x.dtype)  # (B, H, hd)
+    y = torch.einsum("bhk,hkd->bd", hh, params["wo"])[:, None, :]
+    return y, {"C": c_new, "n": n_new, "m": m_new}
+
+
+def mlstm_block(
+    cfg: ModelConfig,
+    params: Dict[str, Tensor],
+    x: Tensor,
+    *,
+    ctx: ApplyCtx,
+    cache: Optional[Dict[str, Tensor]] = None,
+) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
+    """Returns (y, cache).  Prefill starts from the zero state whatever the
+    cache holds, as the reference does, and leaves the final state in the
+    cache; decode advances the cache's state one step.  Both write in place."""
+    if ctx.mode == "decode":
+        assert cache is not None
+        y, state = _mlstm_step(cfg, params, x, cache)
+    else:
+        y, (k32, v32, log_i, fcum) = _mlstm_parallel(cfg, params, x, ctx)
+        if ctx.mode != "prefill" or cache is None:
+            return y, cache
+        state = mlstm_final_state(k32, v32, log_i, fcum)
+    for key, value in state.items():
+        cache[key].copy_(value)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+
+def slstm_spec(cfg: ModelConfig) -> Dict[str, P]:
+    d, h = cfg.d_model, cfg.num_heads
+    hd = d // h
+    return {
+        "wx": P((d, 4, h, hd), ("embed", None, "heads", "head_dim")),
+        "r": P((4, h, hd, hd), (None, "heads", "head_dim", None), scale=0.01),
+        "b": P((4, h, hd), (None, "heads", "head_dim"), init="zeros"),
+        "wo": P((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+
+
+_SLSTM_STATE = ("c", "n", "h", "m")
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> Dict[str, Tensor]:
+    h = cfg.num_heads
+    shape = (batch, h, cfg.d_model // h)
+    cache = {key: torch.zeros(shape, dtype=torch.float32, device=device) for key in "cnh"}
+    cache["m"] = torch.full(shape, -1e30, dtype=torch.float32, device=device)
+    return cache
+
+
+def _slstm_step(r_rows: Tensor, b32: Tensor, state: Tuple[Tensor, ...], xt: Tensor):
+    """One sLSTM step.  xt: (B, 4, H, hd) float32 pre-activations from the
+    input; r_rows: the recurrent weights in float32 as (H, hd, 4 hd), one
+    block-diagonal product per head; b32: the biases (4, H, hd) in float32.
+    Returns the new (c, n, h, m)."""
+    c, n, h_prev, m_prev = state
+    b, heads, hd = h_prev.shape
+    rec = torch.bmm(h_prev.transpose(0, 1), r_rows).view(heads, b, 4, hd).permute(1, 2, 0, 3)
+    pre = xt + rec + b32  # (B, 4, H, hd)
+    z = torch.tanh(pre[:, 0])
+    log_i = pre[:, 1]
+    log_f = F.logsigmoid(pre[:, 2])
+    o = torch.sigmoid(pre[:, 3])
+    m_new = torch.maximum(log_f + m_prev, log_i)
+    i_p = torch.exp(log_i - m_new)
+    f_p = torch.exp(log_f + m_prev - m_new)
+    c_new = f_p * c + i_p * z
+    n_new = torch.clamp(f_p * n + i_p, min=1e-6)
+    return c_new, n_new, o * (c_new / n_new), m_new
+
+
+def slstm_block(
+    cfg: ModelConfig,
+    params: Dict[str, Tensor],
+    x: Tensor,
+    *,
+    ctx: ApplyCtx,
+    cache: Optional[Dict[str, Tensor]] = None,
+) -> Tuple[Tensor, Optional[Dict[str, Tensor]]]:
+    """Returns (y, cache).  Every mode runs the step over x's T positions from
+    the cache's state (the zero state without a cache), in a loop on the
+    device that reads nothing back; decode is the loop at T = 1.  Prefill
+    and decode leave the last state in the cache, in place."""
+    b, t, _ = x.shape
+    pre = torch.einsum("btd,dghk->btghk", x, params["wx"]).float()  # (B, T, 4, H, hd)
+    r = params["r"].float()  # (4, H, hd, hd): the reference promotes it to h's float32
+    r_rows = r.permute(1, 2, 0, 3).reshape(r.shape[1], r.shape[2], -1)
+    b32 = params["b"].float()
+    start = init_slstm_cache(cfg, b, x.device) if cache is None else cache
+    state = tuple(start[key] for key in _SLSTM_STATE)
+    hs = []
+    for i in range(t):
+        state = _slstm_step(r_rows, b32, state, pre[:, i])
+        hs.append(state[2])
+    hh = torch.stack(hs, dim=1).to(x.dtype)  # (B, T, H, hd)
+    y = torch.einsum("bthk,hkd->btd", hh, params["wo"])
+    if cache is not None and ctx.mode != "train":
+        for key, value in zip(_SLSTM_STATE, state):
+            cache[key].copy_(value)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma)
+# ---------------------------------------------------------------------------
 
 _RGLRU_C = 8.0
 _CONV_W = 4

@@ -1,9 +1,10 @@
 """LM assembly: embed -> layer-pattern cycles -> norm -> head.
 
-The port's counterpart of ``repro.models.transformer`` for the dense, vision
-(patch embeddings prepended), hybrid (RG-LRU + local attention), MoE and
-encoder-decoder (``enc`` and ``xdec`` blocks; the encoder's assembly is
-``encdec``) families.  Parameters and caches keep the
+The port's counterpart of ``repro.models.transformer`` for every family of
+the reference: dense, vision (patch embeddings prepended), hybrid (RG-LRU +
+local attention), MoE, encoder-decoder (``enc`` and ``xdec`` blocks; the
+encoder's assembly is ``encdec``) and ssm (mLSTM + sLSTM, attention-free, no
+FFN).  Parameters and caches keep the
 reference's layout: one stacked tree per pattern position with a leading
 ``n_cycles`` axis, plus the unrolled remainder layers.  The layer loop is a
 Python loop over cycles; caches are written in place through views of the
@@ -32,7 +33,13 @@ from .layers import (
 )
 from .params import P, stack_spec, tree_map
 
-PORTED_KINDS = ("dense", "moe", "localattn", "enc", "xdec", "rglru")
+PORTED_KINDS = ("dense", "moe", "localattn", "enc", "xdec", "rglru", "mlstm", "slstm")
+# the recurrent mixers' (spec, cache, block) by kind: the blocks that attend to nothing
+MIXERS = {
+    "rglru": (rec.rglru_spec, rec.init_rglru_cache, rec.rglru_block),
+    "mlstm": (rec.mlstm_spec, rec.init_mlstm_cache, rec.mlstm_block),
+    "slstm": (rec.slstm_spec, rec.init_slstm_cache, rec.slstm_block),
+}
 
 
 def _check_kind(kind: str) -> None:
@@ -48,6 +55,8 @@ def _check_kind(kind: str) -> None:
 def block_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     _check_kind(kind)
     d = cfg.d_model
+    if kind in ("mlstm", "slstm"):  # the xLSTM blocks carry their own projections: no FFN
+        return {"ln1": rmsnorm_spec(d), "mix": MIXERS[kind][0](cfg)}
     if kind == "rglru":
         spec = {"ln1": rmsnorm_spec(d), "mix": rec.rglru_spec(cfg)}
     else:
@@ -69,8 +78,8 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtyp
     """A block's decode cache; an ``xdec`` block's is {"self", "cross"}, the
     cross part ``encoder_seq`` rows deep."""
     _check_kind(kind)
-    if kind == "rglru":
-        return rec.init_rglru_cache(cfg, batch, device)
+    if kind in MIXERS:
+        return MIXERS[kind][1](cfg, batch, device)
     if kind == "xdec":
         return {"self": init_attention_cache(cfg, batch, max_len, dtype, device),
                 "cross": init_attention_cache(cfg, batch, cfg.encoder_seq, dtype, device)}
@@ -97,8 +106,8 @@ def block_apply(
     ``enc_out`` (train and prefill) or to its prefilled cross cache
     (decode, ``enc_out`` None), without rope."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if kind == "rglru":
-        y, _ = rec.rglru_block(cfg, params["mix"], h, ctx=ctx, cache=cache)
+    if kind in MIXERS:
+        y, _ = MIXERS[kind][2](cfg, params["mix"], h, ctx=ctx, cache=cache)
     else:
         window = cfg.local_window if kind == "localattn" else 0
         self_cache = cache["self"] if kind == "xdec" and cache is not None else cache
@@ -132,6 +141,12 @@ def block_apply(
 def _cycles_and_rest(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
     pattern = cfg.pattern
     return cfg.num_layers // len(pattern), pattern[: cfg.num_layers % len(pattern)]
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The block kind of every layer, in order."""
+    n_cycles, rest = _cycles_and_rest(cfg)
+    return cfg.pattern * n_cycles + rest
 
 
 def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:

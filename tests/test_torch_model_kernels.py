@@ -238,18 +238,22 @@ def test_decode_attention_cuda_refuses_uninstantiated_group_and_head_dim(b, h, k
 
 def test_every_parity_shape_and_config_is_instantiated():
     """The (G, D) pairs of tests/test_kernels.py's shapes (the cases, the
-    empty tail) and of every ported configuration, at full width and
-    reduced, have a kernel instantiation, and the wrapper's list is the CUDA
-    source's."""
+    empty tail) and of every ported configuration with an attention layer,
+    at full width and reduced, have a kernel instantiation, and the
+    wrapper's list is the CUDA source's.  An attention-free configuration
+    (xlstm-1.3b: mLSTM and sLSTM only) never decodes through K2."""
     import re
 
     from repro_torch.configs import ARCHS, get_arch, reduced
     from repro_torch.kernels.build import CSRC
+    from repro_torch.models.transformer import MIXERS
 
     shapes = DECODE_CASES + [(2, 4, 1, 32, 2048)]
     pairs = {(h // kvh, d) for _, h, kvh, d, _ in shapes}
     pair = lambda cfg: (cfg.num_heads // cfg.num_kv_heads, cfg.resolved_head_dim)
-    for name in ARCHS:
+    attention_free = [name for name in ARCHS if set(get_arch(name).pattern) <= set(MIXERS)]
+    assert attention_free == ["xlstm-1.3b"]
+    for name in set(ARCHS) - set(attention_free):
         pairs.add(pair(reduced(get_arch(name))))
         pairs.add(pair(get_arch(name)))
     assert pairs <= INSTANTIATED, pairs - INSTANTIATED
