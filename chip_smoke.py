@@ -17,10 +17,10 @@ result lines:
      paths give it: K1 in both its modes (mirrored and general), the
      service's slab (2048, 512, 8) and dense drain (100 000, 512, 8) among
      them, K2 at every compiled (G, D), with a sequence of length 0 and at
-     the decode shapes of phases 7b-7h (arctic's (7, 128), whisper's self
-     and 1500-row cross caches at (1, 64), internvl2's (7, 64), yi's and
-     command-r's (8, 128)) in float32 and with a bfloat16 query, K3
-     at the ragged edges
+     the decode shapes of phases 7b-7h and 7j (arctic's (7, 128), whisper's
+     self and 1500-row cross caches at (1, 64), internvl2's (7, 64), yi's and
+     command-r's (8, 128), tinyllama's (8, 64)) in float32 and with a
+     bfloat16 query, K3 at the ragged edges
      of its tiling, with decays near 1 (where every chunk's carry shows) and
      from rows that are not 16-byte aligned, and K3's output bitwise the
      same on two calls and on replays of a CUDA graph;
@@ -29,8 +29,8 @@ result lines:
      version's time, its bound, for K1 the general mode's time and the
      special-function floor, for K2 the time of
      ``scaled_dot_product_attention`` on the same inputs (also at the
-     decode shapes of phases 7d-7g, whisper's cross cache among them, under
-     ``by_shape``), and for K3 the
+     decode shapes of phases 7d-7g and 7j, whisper's cross cache among them,
+     under ``by_shape``, each with its share of the bound), and for K3 the
      stream yardstick ``torch.add(a, x, out=h)``, which moves its bytes, and
      its time from rows that are not 16-byte aligned (plain loads, not TMA);
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
@@ -103,6 +103,10 @@ result lines:
      family is attention-free), prefill and decode times, peak memory; then
      one sLSTM block's prefill at (4, 512, 2048) and one mLSTM block's,
      each timed apart with CUDA events, beside the whole prefill;
+ 7j. tinyllama-1.1b at full width (22 layers, d_model 2048, 32 heads over 4
+     kv heads of 64, 1.1 B bf16 parameters) with TINYLLAMA_ARGV (batch 4,
+     512-token prompts, 16 tokens), as phase 7f: K2 at (8, 64) 22 times a
+     decode step, 330 in all;
  8b. teacher forcing at full width in float32, as phase 8, for whisper-medium
      (random frames) and internvl2-1b (random patches, biases drawn so that
      they count): batch 2, prefill, 3 decode steps against
@@ -146,7 +150,22 @@ result lines:
      deterministic-assumption split, the analytic composed moments against
      the simulator, the move refinement once (one pass, its accepted moves,
      moves run, device reads and ms a move), and
-     ``examples/pipeline_dag_torch.py``'s diamond with its two assertions.
+     ``examples/pipeline_dag_torch.py``'s diamond with its two assertions;
+ 12. ``examples/serve_partitioned_torch.py``'s body on full-width
+     tinyllama-1.1b (3 replicas, 8 rounds of 24 requests, replica 0's shard
+     served: 12-token prompts, 2 decode steps): each round's counts, drains
+     and proposes (drains > proposes >= 1), the learned split's oracle
+     makespan below the equal split's, the risk-averse split's Var no more
+     than the min-mean split's, the deadline's P(t <= eps) in (0, 1]; K1 12
+     times a drain, K2 22 x 2 times a round; then K1 at (3, 128, 8) and K2
+     at every batch replica 0 served against their plain versions;
+ 13. checkpoint and resume (``repro_torch.checkpoint``), run right after
+     phase 9: phase 9 (e)'s dense service at K = 100 000 with 4 rows left
+     buffered is saved, restored into a fresh template on the card, and the
+     restored and the saved loop tick twice on the same telemetry, every
+     leaf (the generator's state included) and the published split bitwise;
+     then the scheduler state alone, observe -> propose on both, bitwise;
+     the bytes written and the ms of save, wait and restore.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -356,6 +375,11 @@ K2_WHISPER_CROSS = (4, 16, 16, 64, WHISPER_FRAMES)
 K2_INTERNVL = (4, 14, 2, 64, INTERNVL_PATCHES + INTERNVL[2] + INTERNVL[3] + 8)
 K2_YI = (4, 32, 4, 128, YI[2] + YI[3] + 8)
 K2_COMMAND_R = (4, 64, 8, 128, COMMAND_R[2] + COMMAND_R[3] + 8)
+# Phase 7j: tinyllama-1.1b at full width (22 layers, 32 heads over 4 kv heads
+# of 64), as phase 7f; K2 at (8, 64) over yi-9b's cache depth.
+TINYLLAMA = ("tinyllama-1.1b", 4, 512, 16)
+TINYLLAMA_ARGV = serve_argv(*TINYLLAMA)
+K2_TINYLLAMA = (4, 32, 4, 64, TINYLLAMA[2] + TINYLLAMA[3] + 8)
 # Phase 8b: float32 teacher forcing at full width, (arch, batch, prefill tokens).
 TF_FAMILIES = (("whisper-medium", 2, 64), ("internvl2-1b", 2, 512))
 # Phase 7i: the ssm family, xlstm-1.3b at full width and depth (42 mLSTM and 6
@@ -442,7 +466,8 @@ def phase_k2_parity():
             (K2_WHISPER_SELF, first_last(0, *WHISPER[2:], K2_WHISPER_SELF[-1])),
             (K2_INTERNVL, first_last(INTERNVL_PATCHES, *INTERNVL[2:], K2_INTERNVL[-1])),
             (K2_YI, first_last(0, *YI[2:], K2_YI[-1])),
-            (K2_COMMAND_R, first_last(0, *COMMAND_R[2:], K2_COMMAND_R[-1]))):
+            (K2_COMMAND_R, first_last(0, *COMMAND_R[2:], K2_COMMAND_R[-1])),
+            (K2_TINYLLAMA, first_last(0, *TINYLLAMA[2:], K2_TINYLLAMA[-1]))):
         for q_dt, tol in ((f32, 2e-5), (bf16, 1e-3)):
             cases.append((shape, q_dt, f32, length, tol))
     worst = 0.0
@@ -652,9 +677,10 @@ def k2_timing(shape):
     ops = 4.0 * b * h * s * d
     nbytes = (q.numel() * 2 + 2 * k.numel() * 4 + length.numel() * 4 + q.numel() * 2)
     bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
-    say(f"[k2-time] (B, H, KVH, D, S)={shape} ({n_sets} input sets): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({ops:.3e} ops, {nbytes:.3e} bytes)")
+    say(f"[k2-time] (B, H, KVH, D, S)={shape} ({n_sets} input sets): kernel {ms:.4f} ms "
+        f"({100 * bound_ms / ms:.1f} % of the bound), plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, "
+        f"{nbytes:.3e} bytes)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -663,10 +689,10 @@ def phase_k2_timing():
     """K2 at the serving path's decode shape (the kernel's time in the
     result line), and listed under ``by_shape`` at arctic-480b's (phase 7d,
     (G, D) = (7, 128)), whisper-medium's cross cache (phase 7e, (1, 64),
-    1500 rows), internvl2-1b's (phase 7f, (7, 64)) and yi-9b's (phase 7g,
-    (8, 128))."""
+    1500 rows), internvl2-1b's (phase 7f, (7, 64)), yi-9b's (phase 7g,
+    (8, 128)) and tinyllama-1.1b's (phase 7j, (8, 64))."""
     main_path = k2_timing(K2_PATH)
-    shapes = (K2_ARCTIC, K2_WHISPER_CROSS, K2_INTERNVL, K2_YI)
+    shapes = (K2_ARCTIC, K2_WHISPER_CROSS, K2_INTERNVL, K2_YI, K2_TINYLLAMA)
     return dict(main_path, by_shape={str(shape): k2_timing(shape) for shape in shapes})
 
 
@@ -1161,6 +1187,7 @@ def drive_service(device, active):
         m["solve_kernel_ms"].append(sum(e.device_time_total for e in prof.key_averages()) / 1e3)
     if max(m["memory"][1:]) > m["memory"][0]:
         raise AssertionError(f"device memory grew across ticks: {m['memory']}")
+    m["loop"] = loop  # phase 13 checkpoints the dense loop's state
     return m
 
 
@@ -2067,9 +2094,216 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
     return launches, k1_err
 
 
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_example(device="cuda"):
+    """Phase 12: the example's body on full-width tinyllama-1.1b; its
+    rounds, counters, oracle makespans and tail-mode splits printed and
+    checked.  Returns (launches, the example's result, cfg)."""
+    import numpy as np
+    import serve_partitioned_torch as example
+    from repro_torch import kernels, sched
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(TINYLLAMA[0])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = example.serve_partitioned(cfg, device)
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    c = out["counters"]
+    for i, r in enumerate(out["rounds"]):
+        say(f"[example] round {i}: requests {r['counts'].tolist()}, drift {r['drift']:.4f}, "
+            f"proposed {r['proposed']}")
+    say(f"[example] {cfg.name} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}) "
+        f"on {device}: {seconds:.1f} s, {c}")
+    say(f"[example] oracle makespan: equal split {out['oracle_equal']:.4f} s, learned split "
+        f"{out['oracle_learned']:.4f} s ({np.round(out['fractions'], 4).tolist()})")
+    _, same = sched.propose(out["state"], sched.SchedulerConfig(objective=sched.Objective.mean()))
+    say(f"[example] risk-averse split {np.round(out['risk_fractions'], 4).tolist()}: E "
+        f"{out['risk_e_t']:.4f} s, Var {out['risk_var']:.5f} (min-mean: published Var "
+        f"{out['var']:.5f}, on the same beliefs {float(same.var):.5f})")
+    say(f"[example] deadline {out['eps']:.4f} s split "
+        f"{np.round(out['deadline_fractions'], 4).tolist()}: P(t <= eps) {out['deadline_p']:.4f}")
+    if not out["oracle_learned"] < out["oracle_equal"]:
+        raise AssertionError("[example] the learned split does not beat the equal split")
+    if not c["drains"] > c["proposes"] >= 1:
+        raise AssertionError(f"[example] not drains > proposes >= 1: {c}")
+    if not (out["risk_var"] <= out["var"] and out["risk_var"] <= float(same.var)):
+        raise AssertionError("[example] the risk-averse split's Var exceeds the min-mean split's")
+    if not 0.0 < out["deadline_p"] <= 1.0:
+        raise AssertionError(f"[example] P(t <= eps) = {out['deadline_p']} outside (0, 1]")
+    for r in out["rounds"]:
+        tokens = r["tokens"]
+        if tokens.shape != (int(r["counts"][0]), 1) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            raise AssertionError(f"[example] tokens {tuple(tokens.shape)} out of shape or range")
+    say(f"[example] launches on the main path: {launches}")
+    return launches, out, cfg
+
+
+def phase_example_parity(out, cfg):
+    """K1 and K2 against their plain versions at the shapes phase 12 gave
+    them: K1 at (3 replicas, G 128, ring 8) in both modes; K2 at every batch
+    replica 0 served, (B, 32, 4, 64, 16 rows), at the lengths of the two
+    decode steps, with a float32 and a bfloat16 query (2e-5, 1e-3) over the
+    float32 cache.  Returns each kernel's max |err|."""
+    import serve_partitioned_torch as example
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.posterior_grid import posterior_grid_fleet, posterior_grid_plain
+
+    errs = dict(posterior_grid_fleet=0.0, decode_attention=0.0)
+    config = out["config"]
+    k, g, n = 3, config.sched.grid_size, config.capacity
+    for sym in (True, False):
+        args = fleet_case(k, g, n, seed=500, device="cuda")
+        err, rel = assert_logp_close(posterior_grid_fleet(*args, symmetric_grid=sym),
+                                     posterior_grid_plain(*args, symmetric_grid=sym))
+        errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], err)
+        say(f"[example-parity] K1 {'mirrored' if sym else 'general '} K={k} G={g} N={n}: max|err| "
+            f"{err:.3e}; over its row's 1 + max|logp| {rel:.3e} within rtol {RTOL:g}")
+    lengths = [example.PROMPT + step for step in range(1, example.DECODE_STEPS + 1)]
+    for i, b in enumerate(sorted({int(r["counts"][0]) for r in out["rounds"]})):
+        shape = (b, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim, example.CACHE)
+        for q_dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-3)):
+            args = decode_case(*shape, seed=520 + i, q_dtype=q_dt, kv_dtype=torch.float32,
+                               length=[lengths[j % len(lengths)] for j in range(b)])
+            err = assert_close(decode_attention(*args), decode_attention_plain(*args), tol, tol)
+            errs["decode_attention"] = max(errs["decode_attention"], err)
+            say(f"[example-parity] K2 (B, H, KVH, D, S)={shape} q {q_dt} cache float32 lengths "
+                f"{sorted(set(args[3].tolist()))}: max|err| {err:.3e} within {tol:g}")
+    torch.cuda.synchronize()
+    return errs
+
+
+CKPT_DIR = ROOT / "build" / "checkpoint"  # git-ignored; emptied first
+CKPT_TICKS = 2  # ticks of both loops after the restore
+
+
+def first_difference(got, want):
+    """The first key path at which two checkpoint trees are not bitwise
+    equal, a generator's state included; None where every leaf is."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    state = lambda x: x.get_state() if isinstance(x, torch.Generator) else x
+    gp, gl = _flatten_with_paths(got)
+    wp, wl = _flatten_with_paths(want)
+    if gp != wp:
+        return "the key paths"
+    for path, g, w in zip(gp, gl, wl):
+        g, w = state(g), state(w)
+        if g.dtype != w.dtype or g.device != w.device or not torch.equal(g, w):
+            return path
+    return None
+
+
+def equal_leaves(what, got, want):
+    """Every leaf of two checkpoint trees bitwise equal; returns their count."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+
+    path = first_difference(got, want)
+    if path is not None:
+        raise AssertionError(f"{what}: {path} differs")
+    return len(_flatten_with_paths(got)[0])
+
+
+def phase_checkpoint(loop):
+    """Phase 13: checkpoint and resume of phase 9 (e)'s dense service at
+    K = 100 000 with telemetry left buffered; nothing is pending (each of
+    its ticks polled its async solve in).  The restored loop and the saved
+    one tick twice on the same telemetry and publish, and every leaf stays
+    bitwise equal; then the scheduler state alone: saved, restored, and
+    observe -> propose on both, bitwise.  Returns the launches of the ticks,
+    observes and proposes that follow the restores."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels, sched, serve
+    from repro_torch.checkpoint import CheckpointManager
+
+    device, k = loop.device, loop.num_workers
+    fracs, times = service_truth(k, device, seed=13)
+    for _ in range(SVC_RING // 2):  # left buffered
+        loop.push(fracs, times())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(str(CKPT_DIR), keep=2)
+    sync(device)
+    t0 = time.perf_counter()
+    mgr.save(1, loop.state._asdict(), {"phase": 13})
+    t_save = time.perf_counter()
+    mgr.wait()
+    t_wait = time.perf_counter()
+    nbytes = sum(p.stat().st_size for p in (CKPT_DIR / "step_00000001").iterdir())
+    template = serve.init(loop.config, k, seed=0, device=device)._asdict()
+    if first_difference(template, loop.state._asdict()) is None:  # the comparison can fail
+        raise AssertionError("[checkpoint] a fresh template already equals the saved state")
+    sync(device)
+    t1 = time.perf_counter()
+    restored, extra = mgr.restore(template)
+    sync(device)
+    t_restore = time.perf_counter() - t1
+    state2 = serve.ServeState(**restored)
+    n = equal_leaves("restored service state", state2, loop.state)
+    say(f"[checkpoint] service state K={k} G={loop.config.sched.grid_size} ring "
+        f"{loop.config.capacity} ({int(loop.state.ring.count)} rows buffered), {n} leaves: "
+        f"{nbytes} bytes written; save blocks the host {(t_save - t0) * 1e3:.2f} ms (the "
+        f"snapshot), wait() returns {(t_wait - t0) * 1e3:.2f} ms after save began; restore "
+        f"{t_restore * 1e3:.2f} ms; every leaf bitwise, the generator's state included")
+
+    kernels.reset_launch_counts()
+    loop2 = serve.ServiceLoop(k, config=loop.config, state=state2)
+    for tick in range(CKPT_TICKS):
+        if tick:
+            for _ in range(SVC_RING):
+                row = times()
+                loop.push(fracs, row)
+                loop2.push(fracs, row)
+        infos = [lp.tick() for lp in (loop, loop2)]
+        for lp in (loop, loop2):
+            while lp.config.async_propose and not lp.poll():
+                time.sleep(1e-4)
+        if infos[0].drained != infos[1].drained or infos[0].proposed != infos[1].proposed:
+            raise AssertionError(f"[checkpoint] tick {tick}: {infos[0]} against {infos[1]}")
+        equal_leaves(f"service state after tick {tick}", loop2.state, loop.state)
+        if not np.array_equal(loop.fractions(), loop2.fractions()):
+            raise AssertionError(f"[checkpoint] tick {tick}: published splits differ")
+    say(f"[checkpoint] restored and saved loops: {CKPT_TICKS} ticks each (drained "
+        f"{SVC_RING // 2} then {SVC_RING}, async solves polled in), every leaf and the "
+        f"published split bitwise")
+
+    state = loop.state.sched
+    mgr.save(2, state)
+    mgr.wait()
+    restored, _ = mgr.restore(sched.init(loop.config.sched, k, seed=0, device=device))
+    equal_leaves("restored scheduler state", restored, state)
+    f = fracs[:, None].expand(k, SVC_RING).contiguous()
+    telem = sched.Telemetry(fracs=f, times=torch.stack([times() for _ in range(SVC_RING)], dim=1))
+    s1, ll1 = sched.observe(state, telem, loop.config.sched)
+    s2, ll2 = sched.observe(restored, telem, loop.config.sched)
+    equal_leaves("scheduler state after observe", (s2, ll2), (s1, ll1))
+    (f1, st1), (f2, st2) = (sched.propose(s, loop.config.sched) for s in (s1, s2))
+    equal_leaves("propose", (f2, st2), (f1, st1))
+    sync(device)
+    launches = kernels.launch_counts()
+    say(f"[checkpoint] scheduler state K={k}: saved, restored, observe (N={SVC_RING}) -> "
+        f"propose on the restored and the saved state bitwise")
+    say(f"[checkpoint] launches on the main path: {launches}")
+    return launches
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
+    import serve_partitioned_torch as example
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import layer_kinds
@@ -2104,13 +2338,25 @@ def main() -> int:
     yi_launches = phase_serve_family("yi", YI, YI_ARGV)
     command_r_launches = phase_serve_command_r()
     xlstm_launches = phase_serve_xlstm()
+    tinyllama_launches = phase_serve_family("tinyllama", TINYLLAMA, TINYLLAMA_ARGV)
+    tiny_cfg = get_arch(TINYLLAMA[0])
+    want = attention_layers(tiny_cfg) * (TINYLLAMA[3] - 1)  # 22 x 15 = 330 at (8, 64)
+    if tinyllama_launches != dict(posterior_grid_fleet=0, decode_attention=want, lru_scan=0):
+        raise AssertionError(f"[tinyllama] launches {tinyllama_launches}, not {want} of K2")
     phase_teacher_forcing_families()
     phase_teacher_forcing_xlstm()
-    service_launches, _ = phase_service()
+    service_launches, service_runs = phase_service()
     drives = 2 * (1 + SVC_TICKS)  # dense and active loops, a warm-up tick and the timed ones
     if service_launches.get("posterior_grid_fleet") != SWEEPS * drives:
         raise AssertionError(f"K1 launched {service_launches} times on the service path, "
                              f"not {SWEEPS * drives}")
+    ckpt_launches = phase_checkpoint(service_runs["dense"].pop("loop"))
+    del service_runs
+    # 20 sweeps a tick of two loops, CKPT_TICKS each, then two observes
+    if ckpt_launches != dict(posterior_grid_fleet=SWEEPS * (2 * CKPT_TICKS + 2), decode_attention=0,
+                             lru_scan=0):
+        raise AssertionError(f"[checkpoint] launches {ckpt_launches}, not "
+                             f"{SWEEPS * (2 * CKPT_TICKS + 2)} of K1")
     part_launches, part_errs = phase_partitioned("partitioned", PART_ARGV, smoke=True)
     vlm_launches, vlm_errs = phase_partitioned("partitioned-vlm", PART_VLM_ARGV)
     for name in errs:
@@ -2119,13 +2365,26 @@ def main() -> int:
     errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], dag_err)
     if dag_launches.get("posterior_grid_fleet") != SWEEPS * CYCLES:  # 20 per observe_dag
         raise AssertionError(f"K1 launched {dag_launches} times on the DAG path, not {SWEEPS * CYCLES}")
+    example_launches, example_out, example_cfg = phase_example()
+    served = sum(int(r["counts"][0]) > 0 for r in example_out["rounds"])  # rounds replica 0 served
+    want = dict(posterior_grid_fleet=example_out["config"].sched.n_iters
+                * example_out["counters"]["drains"],
+                decode_attention=attention_layers(example_cfg) * example.DECODE_STEPS * served,
+                lru_scan=0)
+    if example_launches != want:
+        raise AssertionError(f"[example] launches {example_launches}, not {want}")
+    example_errs = phase_example_parity(example_out, example_cfg)
+    del example_out
+    for name, err in example_errs.items():
+        errs[name] = max(errs[name], err)
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
                    serve_whisper=whisper_launches, serve_internvl2=internvl_launches,
                    serve_yi=yi_launches, serve_command_r=command_r_launches,
                    serve_xlstm=xlstm_launches, service=service_launches,
                    partitioned=part_launches, partitioned_internvl2=vlm_launches,
-                   dag=dag_launches)
+                   dag=dag_launches, serve_tinyllama=tinyllama_launches,
+                   example_partitioned=example_launches, checkpoint=ckpt_launches)
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),
         ("decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:81"),

@@ -92,6 +92,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.hier, repro_torch.serve, repro_torch.distributed\n"
         "import repro_torch.core.compress, repro_torch.configs.smollm_135m\n"
         "import repro_torch.sim, repro_torch.sim.workflow, repro_torch.sched.dag\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.checkpoint\n"
+        "sys.path.insert(0, 'examples')\n"
+        "import serve_partitioned_torch\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -127,7 +130,7 @@ KERNEL_COUNTERPARTS = {
 
 
 @pytest.mark.parametrize("name", ["core", "sched", "sim", "hier", "serve", "kernels", "models",
-                                  "configs", "train", "distributed", "launch"])
+                                  "configs", "train", "distributed", "launch", "checkpoint"])
 def test_port_exports_what_the_reference_exports(name):
     """For every subpackage the port has, its ``__all__`` holds the
     reference's, less the names still to port (each tagged with its ROADMAP
