@@ -166,6 +166,33 @@ result lines:
      leaf (the generator's state included) and the published split bitwise;
      then the scheduler state alone, observe -> propose on both, bitwise;
      the bytes written and the ms of save, wait and restore.
+ 14. the legacy partitioner API (``repro_torch.sched.compat``) at phase 6's
+     fleet (K = 4096, N = 256, its truth and telemetry, 3 cycles):
+     ``HeterogeneityAwarePartitioner`` (its DeprecationWarning asserted)
+     beside a ``sched.Scheduler`` twin of the same config and seed, both
+     with ``min_fraction`` 1/total; ``propose_fractions`` and
+     ``propose_microbatches(8 K)`` bitwise the twin's every cycle; the
+     oracle gap (>= 80 %); ``optimize_fractions`` and the legacy
+     ``quantize_fractions`` bitwise the functions they delegate to; the
+     ``risk_aversion`` property; 120 K1 launches (20 x 3 x 2);
+ 15. fault tolerance (``repro_torch.distributed.fault_tolerance``) around
+     phase 14's two partitioners: 8 steps of one job a worker, 41 workers
+     6x slow throughout and from step 4 another 41 reporting ``inf`` to
+     monitor A (finite times to B): failure masks exact, no failed worker
+     flagged, straggler recall 1.0 at the last step, the live ``ewma_ll``
+     bitwise B's and the failed ones frozen, false positives printed; then
+     evict (K = 4055), admit 41 (K = 4096), the events in order, and one
+     observe at the degraded truth + ``propose_fractions``: finite
+     fractions summing to 1, every admitted worker > 0, the stragglers'
+     share below what it was; 20 K1 launches;
+ 16. gradient compression (``repro_torch.distributed.compression``) over
+     full-width tinyllama-1.1b's parameter tree (1.100 B float32 entries,
+     seeded): ``int8_ef`` and ``topk_ef`` at ratio 0.01, two chained calls
+     each, on every leaf sent + ef' == g + ef, int8 as integers x scale,
+     top-k keeping k entries and more only by ties; three leaves (the
+     embedding, the stacked q projection, the final norm's scale) on the
+     card bitwise the CPU's; each call's ms, the peak memory, the int8
+     payload's bytes.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -746,6 +773,58 @@ def phase_quickstart():
     say(f"[quickstart] ok in {time.perf_counter() - t0:.2f} s")
 
 
+def fleet_truth(device, k):
+    """Phase 6's seeded fleet: the true (K,) worker parameters, and the
+    generator its telemetry is drawn from after them."""
+    import torch
+    from repro_torch.core.frontier import UnitParams
+
+    gen = torch.Generator(device=device).manual_seed(2015)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand((k,), generator=gen, device=device)
+    truth = UnitParams(mu=u(5.0, 40.0), sigma=u(0.5, 3.0), alpha=u(0.6, 0.95), beta=u(0.5, 0.9))
+    return truth, gen
+
+
+def fleet_times(truth, f, gen):
+    """Times of jobs of sizes ``f`` ((K,) or (K, N)) drawn from the truth:
+    t = f^alpha mu + f^beta sigma eps."""
+    import torch
+
+    eps = torch.randn(f.shape, generator=gen, device=f.device)
+    per_k = lambda x: x.reshape(x.shape + (1,) * (f.ndim - 1))
+    return (f ** per_k(truth.alpha) * per_k(truth.mu)
+            + f ** per_k(truth.beta) * per_k(truth.sigma) * eps)
+
+
+def fleet_telemetry(truth, fracs, gen, n):
+    """Phase 6's telemetry: each worker runs n jobs whose sizes vary by
+    e^[-2, 2] around its share.  Proposals move shares by up to ~16x, and
+    alpha is only identified across the range the telemetry spans."""
+    import torch
+    from repro_torch import sched
+
+    f = fracs[:, None] * torch.exp(
+        -2.0 + 4.0 * torch.rand((fracs.shape[0], n), generator=gen, device=fracs.device))
+    return sched.Telemetry(fracs=f, times=fleet_times(truth, f, gen))
+
+
+def oracle_gap(truth, fracs, config):
+    """The share of the oracle's gain over the uniform split that ``fracs``
+    recovers under the truth, with the three scores (uniform, ``fracs``,
+    oracle)."""
+    import torch
+    from repro_torch import sched
+
+    k = fracs.shape[0]
+    uniform = torch.full((k,), 1.0 / k, device=fracs.device)
+    oracle, _ = sched.solve_fractions(
+        truth, objective=config.objective, steps=config.opt_steps, lr=config.opt_lr,
+        num_points=config.num_points, min_fraction=config.min_fraction)
+    score = lambda fr: float(sched.evaluate(config.objective, fr, truth, num_points=config.num_points))
+    s_uni, s_prop, s_orc = score(uniform), score(fracs), score(oracle)
+    return (s_uni - s_prop) / max(s_uni - s_orc, 1e-12), (s_uni, s_prop, s_orc)
+
+
 def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
     """The main path: observe -> propose -> quantize on a seeded fleet.
 
@@ -753,34 +832,14 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
     card (no sync check, no device clocks)."""
     import torch
     from repro_torch import kernels, sched
-    from repro_torch.core.frontier import UnitParams
     from repro_torch.device import no_sync
     from repro_torch.sched import quantize as refine
 
     total = 8 * k
     # The proposal floor matches quantization's one-microbatch floor.
     config = sched.SchedulerConfig(min_fraction=1.0 / total)
-    gen = torch.Generator(device=device).manual_seed(2015)
-    u = lambda lo, hi, *shape: lo + (hi - lo) * torch.rand(shape or (k,), generator=gen, device=device)
-    truth = UnitParams(mu=u(5.0, 40.0), sigma=u(0.5, 3.0), alpha=u(0.6, 0.95), beta=u(0.5, 0.9))
-
-    def telemetry(fracs):
-        # each worker runs n jobs whose sizes vary by e^[-2, 2] around its
-        # share: proposals move shares by up to ~16x, and alpha is only
-        # identified across the range the telemetry spans
-        f = fracs[:, None] * torch.exp(u(-2.0, 2.0, k, n))
-        eps = torch.randn((k, n), generator=gen, device=device)
-        t = f ** truth.alpha[:, None] * truth.mu[:, None] + f ** truth.beta[:, None] * truth.sigma[:, None] * eps
-        return sched.Telemetry(fracs=f, times=t)
-
-    def clock(fn):
-        if device != "cpu":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        if device != "cpu":
-            torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+    truth, gen = fleet_truth(device, k)
+    telemetry = lambda fracs: fleet_telemetry(truth, fracs, gen, n)
 
     state = sched.init(config, k, seed=0, device=device)
     fracs = torch.full((k,), 1.0 / k, device=device)
@@ -796,9 +855,9 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
                 fr, stats = sched.propose(st, config)
             return st, ll, fr, stats
 
-        (state, ll, fracs, stats), ms_cycle = clock(observe_and_propose)
+        (state, ll, fracs, stats), ms_cycle = clock(device, observe_and_propose)
         refine.reset_refine_stats()
-        counts, ms_quant = clock(lambda: sched.quantize_fractions(
+        counts, ms_quant = clock(device, lambda: sched.quantize_fractions(
             fracs.cpu().numpy(), total, sched.unit_params(state), objective=config.objective))
         moves = refine.refine_stats()
         if not bool(torch.isfinite(ll).all()):
@@ -814,16 +873,10 @@ def phase_fleet(device="cuda", k=K_FLEET, n=N_OBS):
 
     # Separate timings of the two device stages on the final state.
     telem = telemetry(fracs)
-    _, ms_observe = clock(lambda: sched.observe(state, telem, config))
-    _, ms_propose = clock(lambda: sched.propose(state, config))
+    _, ms_observe = clock(device, lambda: sched.observe(state, telem, config))
+    _, ms_propose = clock(device, lambda: sched.propose(state, config))
 
-    uniform = torch.full((k,), 1.0 / k, device=device)
-    oracle, _ = sched.solve_fractions(
-        truth, objective=config.objective, steps=config.opt_steps, lr=config.opt_lr,
-        num_points=config.num_points, min_fraction=config.min_fraction)
-    score = lambda fr: float(sched.evaluate(config.objective, fr, truth, num_points=config.num_points))
-    s_uni, s_prop, s_orc = score(uniform), score(fracs), score(oracle)
-    gap = (s_uni - s_prop) / max(s_uni - s_orc, 1e-12)
+    gap, (s_uni, s_prop, s_orc) = oracle_gap(truth, fracs, config)
     peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
     say(f"[fleet] K={k} N={n}: observe {ms_observe:.1f} ms, propose {ms_propose:.1f} ms, "
         f"quantize (last cycle) {ms_quant:.1f} ms, peak device memory {peak / 2**20:.1f} MiB")
@@ -1931,14 +1984,6 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
     from repro_torch.sched import quantize as refine
 
     on_card = device != "cpu"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-
-    def clock(fn):
-        sync()
-        t0 = time.perf_counter()
-        out = fn()
-        sync()
-        return out, (time.perf_counter() - t0) * 1e3
 
     k1_err = check_dag_k1_parity(device, k, n)
     det, sto = dag_topology(k)
@@ -1984,8 +2029,8 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
                 fr, stats = sched.propose_dag(st, sto, config)
             return st, ll, fr, stats
 
-        (state, ll, fracs, stats), ms_cycle = clock(observe_and_propose)
-        counts, ms_quant = clock(lambda: sched.quantize_dag_fractions(
+        (state, ll, fracs, stats), ms_cycle = clock(device, observe_and_propose)
+        counts, ms_quant = clock(device, lambda: sched.quantize_dag_fractions(
             fracs.cpu().numpy(), total, live=live_np))
         fr = fracs.cpu().numpy()
         if not bool(torch.isfinite(ll[live > 0]).all()):
@@ -2009,16 +2054,16 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
             return fn()
 
     telem = telemetry(fracs)
-    _, ms_observe = clock(lambda: guarded(lambda: sched.observe_dag(state, telem, config, dag=sto)))
-    (f_det, _), ms_det = clock(lambda: guarded(lambda: sched.propose_dag(state, det, config)))
-    (f_sto, _), ms_sto = clock(lambda: guarded(lambda: sched.propose_dag(state, sto, config)))
-    rounded, ms_quant = clock(lambda: sched.quantize_dag_fractions(
+    _, ms_observe = clock(device, lambda: guarded(lambda: sched.observe_dag(state, telem, config, dag=sto)))
+    (f_det, _), ms_det = clock(device, lambda: guarded(lambda: sched.propose_dag(state, det, config)))
+    (f_sto, _), ms_sto = clock(device, lambda: guarded(lambda: sched.propose_dag(state, sto, config)))
+    rounded, ms_quant = clock(device, lambda: sched.quantize_dag_fractions(
         f_sto.cpu().numpy(), total, live=live_np))
     # The move refinement (quantize_fractions(params=)) at this width, once,
     # as a yardstick: one pass, at most 128 moves a stage, one device read a
     # block of moves; each stage refines its own E[t] under the truth.
     refine.reset_refine_stats()
-    refined, ms_refine = clock(lambda: sched.quantize_dag_fractions(
+    refined, ms_refine = clock(device, lambda: sched.quantize_dag_fractions(
         f_sto.cpu().numpy(), total, truth, refine_passes=1, live=live_np))
     refine_moves = refine.refine_stats()
     if not ((refined.sum(-1) == total).all() and (refined[~live_np] == 0).all()
@@ -2030,7 +2075,7 @@ def phase_dag(device="cuda", k=DAG_K, n=DAG_N, mc=DAG_MC, diamond_mc=200_000):
         raise AssertionError(f"{moves} accepted moves cannot give counts that far apart")
     # Quality at the true parameters: one sampled world for every split.
     price = lambda f: sim.simulate_workflow(7, sto, f, truth, num_samples=mc, device=device)
-    t_sto, ms_sim = clock(lambda: price(f_sto))
+    t_sto, ms_sim = clock(device, lambda: price(f_sto))
     t_det, t_uni = price(f_det), price(uniform)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     e_sto, e_det, e_uni = float(t_sto.mean()), float(t_det.mean()), float(t_uni.mean())
@@ -2099,6 +2144,16 @@ def sync(device) -> None:
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+def clock(device, fn):
+    """``fn()`` and its milliseconds on the host's clock, the device
+    synchronised before and after."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def phase_example(device="cuda"):
@@ -2300,6 +2355,298 @@ def phase_checkpoint(loop):
     return launches
 
 
+FT_STEPS, FT_FAIL_STEP = 8, 4  # monitored steps; the first step with failed workers
+FT_SHARE, FT_SLOWDOWN = 0.01, 6.0  # of the fleet; tests/test_fault_tolerance.py:77's factor
+FT_SIGMA, FT_TIMEOUT = 3.0, 1e9  # RunConfig.straggler_threshold_sigma; the trainer's timeout
+COMPRESS_RATIO = 0.01  # make_compressor's default, the trainer's (src/repro/train/trainer.py:86)
+
+
+def same_bits(a, b) -> bool:
+    """Two float32 arrays (numpy or torch) equal bit for bit."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+def phase_legacy(device="cuda", k=K_FLEET, n=N_OBS):
+    """Phase 14: the legacy partitioner API (``sched.compat``) at phase 6's
+    fleet.  ``HeterogeneityAwarePartitioner`` and a ``sched.Scheduler`` twin
+    with the same config and seed see phase 6's truth and telemetry for
+    three cycles of observe -> ``propose_fractions`` ->
+    ``propose_microbatches``; every output of the two is bitwise equal.
+    Both set ``min_fraction = 1 / total`` by replacing ``config`` after
+    construction (the legacy constructor has no such argument): at the
+    default 5e-3 any K > 200 forces the uniform split, in both packages.
+    Then ``optimize_fractions`` and the legacy ``quantize_fractions``
+    against the functions they delegate to, and the ``risk_aversion``
+    property.  Returns what phase 15 continues from."""
+    import warnings
+
+    import torch
+    from repro_torch import kernels, sched
+    from repro_torch.sched import compat
+
+    total = 8 * k
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        part = compat.HeterogeneityAwarePartitioner(k, seed=0, device=device)
+    if not any(issubclass(w.category, DeprecationWarning)
+               and "repro_torch.sched.Scheduler" in str(w.message) for w in caught):
+        raise AssertionError(f"[legacy] no DeprecationWarning on construction: {caught}")
+    config = sched.SchedulerConfig()
+    if part.config != config:
+        raise AssertionError(f"[legacy] legacy defaults {part.config} != {config}")
+    twin = sched.Scheduler(k, config=config, seed=0, device=device)
+    for p in (part, twin):
+        p.config = dataclasses.replace(p.config, min_fraction=1.0 / total)
+    truth, gen = fleet_truth(device, k)
+
+    fracs = torch.full((k,), 1.0 / k, device=device)
+    kernels.reset_launch_counts()
+    for c in range(CYCLES):
+        telem = fleet_telemetry(truth, fracs, gen, n)
+        out, ms = {}, {}
+        for name, p in (("legacy", part), ("twin", twin)):
+            _, ms["observe"] = clock(device, lambda: p.observe(compat.WorkerTelemetry(*telem)))
+            proposal, ms["propose"] = clock(device, p.propose_fractions)
+            counts, ms["microbatches"] = clock(device, lambda: p.propose_microbatches(total))
+            out[name] = (*proposal, counts)
+            if name == "legacy":
+                ms_legacy = dict(ms)
+        (fr, e_t, var, counts), (fr2, e_t2, var2, counts2) = out["legacy"], out["twin"]
+        if not (same_bits(fr, fr2) and e_t == e_t2 and var == var2 and (counts == counts2).all()):
+            raise AssertionError(f"[legacy] cycle {c}: the wrapper and its twin differ")
+        if counts.sum() != total or counts.min() < 1 or abs(float(fr.sum()) - 1.0) > 1e-4:
+            raise AssertionError(f"[legacy] cycle {c}: fractions or counts off")
+        say(f"[legacy] cycle {c}: observe {ms_legacy['observe']:.1f} ms, propose_fractions "
+            f"{ms_legacy['propose']:.1f} ms, propose_microbatches({total}) "
+            f"{ms_legacy['microbatches']:.1f} ms (propose + quantize), E[t] {e_t:.5f}; "
+            f"fractions, E[t], Var and counts bitwise the twin's")
+        fracs = torch.as_tensor(fr, device=device)
+    launches = kernels.launch_counts()
+    gap, (s_uni, s_prop, s_orc) = oracle_gap(truth, fracs, part.config)
+    say(f"[legacy] E[t] under the truth: uniform {s_uni:.5f}, proposed {s_prop:.5f}, oracle "
+        f"{s_orc:.5f}: oracle gap recovered {100 * gap:.1f} %")
+
+    (of, oe, ov), ms_opt = clock(device, lambda: compat.optimize_fractions(truth, risk_aversion=0.0))
+    sf, stats = sched.solve_fractions(truth, objective=sched.Objective.mean(), steps=300)
+    if not (same_bits(of, sf) and same_bits(oe, stats.e_t) and same_bits(ov, stats.var)):
+        raise AssertionError("[legacy] optimize_fractions differs from solve_fractions")
+    params = part.unit_params()
+    legacy_q, ms_q = clock(device, lambda: compat.quantize_fractions(fr, total, params, 2.0))
+    want_q = sched.quantize_fractions(fr, total, params, objective=sched.Objective.mean_var(2.0))
+    if not (legacy_q == want_q).all():
+        raise AssertionError("[legacy] quantize_fractions differs from sched.quantize_fractions")
+    part.risk_aversion = 2.0
+    if part.risk_aversion != 2.0 or part.config.objective != sched.Objective.mean_var(2.0):
+        raise AssertionError(f"[legacy] risk_aversion set to 2.0 reads {part.config.objective}")
+    part.risk_aversion = 0.0
+    if part.config != twin.config:
+        raise AssertionError("[legacy] the twins' configs differ after risk_aversion = 0")
+    say(f"[legacy] optimize_fractions(truth) {ms_opt:.1f} ms, bitwise solve_fractions(steps=300); "
+        f"quantize_fractions(.., {total}, params, 2.0) {ms_q:.1f} ms, bitwise the mean-variance "
+        f"objective's; risk_aversion read and replaced")
+    say(f"[legacy] launches on the main path (both partitioners): {launches}")
+    return dict(part=part, twin=twin, truth=truth, gen=gen, fracs=fr, n=n), launches, gap
+
+
+def phase_fault_tolerance(ctx):
+    """Phase 15: ``FaultToleranceMonitor`` around phase 14's two
+    partitioners, warmed bitwise twins.  Each step every worker runs one
+    job at its share of phase 14's last proposal, drawn from the truth; 1 %
+    of the fleet runs 6x slow throughout, and from step 4 another 1 %
+    reports ``inf`` to monitor A, the finite times they would have had to
+    monitor B.  Then A evicts the failures, admits as many fresh workers,
+    and one observe at the degraded truth must shift work off the
+    stragglers.  Returns that observe's launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.frontier import UnitParams
+    from repro_torch.distributed.fault_tolerance import FaultToleranceMonitor
+
+    part, twin, truth, gen, fracs = (ctx[key] for key in ("part", "twin", "truth", "gen", "fracs"))
+    device, k = part.device, part.num_workers
+    n_bad = math.ceil(FT_SHARE * k)
+    perm = torch.randperm(k, generator=gen, device=device).cpu().numpy()
+    slow, dead = np.sort(perm[:n_bad]), np.sort(perm[n_bad:2 * n_bad])
+    is_slow, is_dead = np.isin(np.arange(k), slow), np.isin(np.arange(k), dead)
+    mon_a, mon_b = (FaultToleranceMonitor(p, heartbeat_timeout=FT_TIMEOUT, straggler_sigma=FT_SIGMA)
+                    for p in (part, twin))
+    f = torch.as_tensor(fracs, device=device)
+    live = torch.as_tensor(np.flatnonzero(~is_dead), device=device)
+    gone = torch.as_tensor(dead, device=device)
+    expected, step_ms, false_pos = [], [], []
+    for step in range(FT_STEPS):
+        times = fleet_times(truth, f, gen).cpu().numpy()
+        times[slow] *= FT_SLOWDOWN
+        seen = times.copy()
+        if step >= FT_FAIL_STEP:
+            seen[dead] = np.inf
+        out_a, ms = clock(device, lambda: mon_a.observe_step(fracs, seen, now=float(step)))
+        out_b = mon_b.observe_step(fracs, times, now=float(step))
+        step_ms.append(ms)
+        failed = is_dead if step >= FT_FAIL_STEP else np.zeros(k, bool)
+        if not (np.array_equal(out_a["failures"], failed) and not out_b["failures"].any()):
+            raise AssertionError(f"[fault] step {step}: failure masks differ from the injected set")
+        if (out_a["stragglers"] & failed).any():
+            raise AssertionError(f"[fault] step {step}: a failed worker was flagged as a straggler")
+        ewma_a, ewma_b = part.state.ewma_ll, twin.state.ewma_ll
+        if not same_bits(ewma_a[live], ewma_b[live]):
+            raise AssertionError(f"[fault] step {step}: live workers' ewma_ll differ from the twin's")
+        if step == FT_FAIL_STEP - 1:
+            frozen = ewma_a[gone].clone()
+        elif step >= FT_FAIL_STEP and not same_bits(ewma_a[gone], frozen):
+            raise AssertionError(f"[fault] step {step}: a failed worker's ewma_ll moved")
+        expected += (["failure"] if failed.any() else []) + (
+            ["straggler"] if out_a["stragglers"].any() else [])
+        healthy = ~is_slow & ~failed
+        fp = int((out_a["stragglers"] & healthy).sum())
+        false_pos.append(f"{fp}/{int(healthy.sum())}")
+        say(f"[fault] step {step}: {ms:.1f} ms; failures {int(out_a['failures'].sum())}, "
+            f"stragglers flagged {int(out_a['stragglers'][slow].sum())} of {n_bad}, false "
+            f"positives {fp} of {int(healthy.sum())} healthy ({100 * fp / healthy.sum():.3f} %)")
+    recall = float(out_a["stragglers"][slow].mean())
+    if recall != 1.0:
+        raise AssertionError(f"[fault] straggler recall {recall} at step {FT_STEPS - 1}")
+
+    failures = out_a["failures"]
+    _, ms_evict = clock(device, lambda: mon_a.evict(failures))
+    if part.num_workers != k - n_bad or len(mon_a.health) != k - n_bad:
+        raise AssertionError(f"[fault] {part.num_workers} workers after evicting {n_bad}")
+    _, ms_admit = clock(device, lambda: mon_a.admit(n_bad, seed=1))
+    if part.num_workers != k or len(mon_a.health) != k:
+        raise AssertionError(f"[fault] {part.num_workers} workers after admitting {n_bad}")
+    types = [e["type"] for e in mon_a.events]
+    if types != expected + ["evict", "admit"] or mon_a.events[-2:] != [
+            {"type": "evict", "count": n_bad}, {"type": "admit", "count": n_bad}]:
+        raise AssertionError(f"[fault] events {types} != {expected + ['evict', 'admit']}")
+    if any(e["workers"] != dead.tolist() for e in mon_a.events if e["type"] == "failure"):
+        raise AssertionError("[fault] a failure event names other workers")
+
+    # Survivors keep their order (remove_workers compacts the fleet); the
+    # admitted are the failed machines, repaired, at the end.
+    keep = np.flatnonzero(~is_dead)
+    order = torch.as_tensor(np.concatenate([keep, dead]), device=device)
+    factor = torch.as_tensor(np.where(is_slow, FT_SLOWDOWN, 1.0), dtype=torch.float32, device=device)
+    degraded = UnitParams(mu=(truth.mu * factor)[order], sigma=(truth.sigma * factor)[order],
+                          alpha=truth.alpha[order], beta=truth.beta[order])
+    slow_now, admitted = np.searchsorted(keep, slow), np.arange(k - n_bad, k)
+    shares = np.concatenate([fracs[keep], np.full(n_bad, 1.0 / k, np.float32)])
+    telem = fleet_telemetry(degraded, torch.as_tensor(shares / shares.sum(), device=device), gen,
+                            ctx["n"])
+    kernels.reset_launch_counts()
+    (_, (fr, _, _)), ms_close = clock(device, lambda: (part.observe(telem), part.propose_fractions()))
+    launches = kernels.launch_counts()
+    before, after = float(fracs[slow].sum()), float(fr[slow_now].sum())
+    if not (np.isfinite(fr).all() and abs(float(fr.sum()) - 1.0) <= 1e-4):
+        raise AssertionError(f"[fault] fractions after readmission not finite or sum {fr.sum()}")
+    if not (fr[admitted] > 0).all():
+        raise AssertionError("[fault] an admitted worker got no work")
+    if not after < before:
+        raise AssertionError(f"[fault] the stragglers' share did not fall: {before} -> {after}")
+    say(f"[fault] K={k}: observe_step median {statistics.median(step_ms):.1f} ms of {FT_STEPS}; "
+        f"failures exact from step {FT_FAIL_STEP}, none flagged a straggler; straggler recall "
+        f"{recall:.1f}; live ewma_ll bitwise the failure-free twin's, failed workers' frozen; "
+        f"false positives by step {false_pos}")
+    say(f"[fault] evict {n_bad} {ms_evict:.1f} ms -> K={k - n_bad}, admit {n_bad} {ms_admit:.1f} "
+        f"ms -> K={k}; events {len(types)} in order; observe (N={ctx['n']}) at the degraded truth "
+        f"+ propose_fractions {ms_close:.1f} ms")
+    say(f"[fault] the stragglers' share: {before:.6f} before they slowed, {after:.6f} after "
+        f"(x{after / before:.3f}); admitted workers' least fraction {float(fr[admitted].min()):.3e}")
+    say(f"[fault] launches on the main path: {launches}")
+    return launches
+
+
+def check_compressed(kind, grads, ef, sent, new_ef, ratio):
+    """Every leaf: sent + ef' == g + ef (rtol, atol 1e-5, tests/test_runtime.py's);
+    int8: sent is integers in [-127, 127] times the leaf's scale; topk: at
+    least k entries kept, more only by ties.  Returns the densest leaf's
+    density (topk) or 0."""
+    import torch
+    from repro_torch.models.params import leaves
+
+    densest = 0.0
+    for g, e, s, e2 in zip(*(leaves(t) for t in (grads, ef, sent, new_ef))):
+        want = g.to(torch.float32) + e
+        if float(torch.max(torch.abs((s + e2) - want) - 1e-5 * torch.abs(want))) > 1e-5:
+            raise AssertionError(f"[compress] {kind}: sent + ef' != g + ef on a {tuple(g.shape)} leaf")
+        if kind == "int8_ef":
+            scale = torch.max(torch.abs(want)) / 127.0 + 1e-12
+            q = torch.round(s / scale)
+            if not (torch.equal(q * scale, s) and float(q.abs().max()) <= 127):
+                raise AssertionError(f"[compress] int8: a {tuple(g.shape)} leaf is not int8 x scale")
+        else:
+            k = max(int(g.numel() * ratio), 1)
+            kept = s != 0
+            nnz, least = int(kept.sum()), torch.min(torch.abs(want[kept]))
+            above, at_least = (int((torch.abs(want) > least).sum()),
+                               int((torch.abs(want) >= least).sum()))
+            if not (nnz >= k and above < k and at_least == nnz):
+                raise AssertionError(f"[compress] topk: {nnz} kept of {g.numel()} (k {k}, "
+                                     f"{above} above the least kept)")
+            densest = max(densest, nnz / g.numel())
+    return densest
+
+
+def phase_compression(device="cuda", cfg=None):
+    """Phase 16: gradient compression with error feedback over full-width
+    tinyllama-1.1b's parameter tree (1.100 B float32 entries) drawn from a
+    seeded generator: both schemes at the trainer's ratio, two chained
+    calls each, every leaf checked; then the embedding, the stacked q
+    projection and the final norm's scale compressed on the card and on
+    the CPU, bit for bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.compression import make_compressor
+    from repro_torch.models import model_zoo
+    from repro_torch.models.params import leaves, tree_map
+
+    cfg = cfg or get_arch(TINYLLAMA[0])
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(16)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=device),
+                     model_zoo.model_spec(cfg))
+    numel, n_leaves = sum(g.numel() for g in leaves(grads)), len(leaves(grads))
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    pick = lambda t: dict(embed=t["embed"], wq=t["cycles"][0]["attn"]["wq"],
+                          norm=t["final_norm"]["scale"])
+    for kind in ("int8_ef", "topk_ef"):
+        compress, init_ef = make_compressor(kind, None, ratio=COMPRESS_RATIO)
+        ef = init_ef(grads)
+        for call in range(2):
+            (sent, new_ef), ms = clock(device, lambda: compress(grads, ef))
+            densest = check_compressed(kind, grads, ef, sent, new_ef, COMPRESS_RATIO)
+            say(f"[compress] {kind} call {call}: {ms:.1f} ms over {numel} entries in {n_leaves} "
+                f"leaves; sent + ef' == g + ef on every leaf"
+                + (f"; densest leaf {densest:.6f}" if kind == "topk_ef" else "; int8 x scale"))
+            del sent
+            ef = new_ef
+        sub_g, sub_e = pick(grads), pick(ef)
+        on_dev = compress(sub_g, sub_e)
+        cpu = lambda t: {key: x.cpu() for key, x in t.items()}
+        on_cpu = compress(cpu(sub_g), cpu(sub_e))
+        for part, got, want in zip(("sent", "ef"), on_dev, on_cpu):
+            for key in sub_g:
+                if not same_bits(got[key].cpu(), want[key]):
+                    raise AssertionError(f"[compress] {kind}: {part} of {key} on {device} != the CPU's")
+        say(f"[compress] {kind}: embed {tuple(sub_g['embed'].shape)}, wq "
+            f"{tuple(sub_g['wq'].shape)} and the final norm's scale on {device} bitwise the CPU's")
+        del ef, on_dev, on_cpu
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    say(f"[compress] int8 payload {numel + 4 * n_leaves} bytes (a scale a leaf) against float32's "
+        f"{4 * numel}; peak device memory {peak / 2**30:.2f} GiB (the tree is "
+        f"{4 * numel / 2**30:.2f} GiB)")
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -2377,6 +2724,17 @@ def main() -> int:
     del example_out
     for name, err in example_errs.items():
         errs[name] = max(errs[name], err)
+    legacy_ctx, legacy_launches, legacy_gap = phase_legacy()
+    want = dict(posterior_grid_fleet=2 * CYCLES * SWEEPS, decode_attention=0, lru_scan=0)
+    if legacy_launches != want:  # 20 sweeps an observe, 3 cycles, 2 partitioners
+        raise AssertionError(f"[legacy] launches {legacy_launches}, not {want}")
+    if legacy_gap < 0.8:
+        raise AssertionError(f"[legacy] oracle gap recovered {100 * legacy_gap:.1f} % < 80 %")
+    fault_launches = phase_fault_tolerance(legacy_ctx)
+    del legacy_ctx
+    if fault_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0):
+        raise AssertionError(f"[fault] launches {fault_launches}, not {SWEEPS} of K1")
+    phase_compression()
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
                    serve_whisper=whisper_launches, serve_internvl2=internvl_launches,
@@ -2384,7 +2742,8 @@ def main() -> int:
                    serve_xlstm=xlstm_launches, service=service_launches,
                    partitioned=part_launches, partitioned_internvl2=vlm_launches,
                    dag=dag_launches, serve_tinyllama=tinyllama_launches,
-                   example_partitioned=example_launches, checkpoint=ckpt_launches)
+                   example_partitioned=example_launches, checkpoint=ckpt_launches,
+                   legacy=legacy_launches, fault_tolerance=fault_launches)
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),
         ("decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:81"),

@@ -1,6 +1,11 @@
 """The paper's contribution on PyTorch: Bayesian estimation of
 processing-unit models and frontier-optimal workflow partitioning (Chua &
 Huberman 2015).  Counterpart of ``repro.core`` for what the port has so far.
+
+The legacy partitioner names (``HeterogeneityAwarePartitioner``,
+``WorkerTelemetry``, ``optimize_fractions``, ``quantize_fractions``) resolve
+lazily from ``repro_torch.sched.compat``, which builds on this package: so
+importing ``core`` does not import ``sched``.
 """
 from .distributions import (
     beta_logpdf,
@@ -55,8 +60,10 @@ __all__ = [
     "BetaParams",
     "CompressionReport",
     "GibbsState",
+    "HeterogeneityAwarePartitioner",
     "NormalGammaParams",
     "UnitParams",
+    "WorkerTelemetry",
     "beta_logpdf",
     "beta_moments",
     "completion_cdf",
@@ -82,9 +89,11 @@ __all__ = [
     "normal_cdf",
     "normal_logpdf",
     "optimal_two_way_fraction",
+    "optimize_fractions",
     "parallel_max_moments",
     "pareto_mask",
     "posterior_predictive_logpdf",
+    "quantize_fractions",
     "sample_beta",
     "sample_gamma",
     "sample_normal",
@@ -96,3 +105,11 @@ __all__ = [
     "update_alpha_beta_params",
     "update_normal_gamma",
 ]
+
+from . import partitioner as _partitioner  # imports nothing of sched until a name is read
+
+
+def __getattr__(name):
+    if name in _partitioner.__all__:
+        return getattr(_partitioner, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,9 @@
 """Distributed helpers of the port: the simulated heterogeneous cluster that
-feeds the partitioned-serving driver.  The reference's sharding, gradient
-compression and fault-tolerance shells come with ROADMAP items 10 and 11."""
+feeds the partitioned-serving driver, and, as submodules as in the
+reference, ``fault_tolerance`` (heartbeats, Bayesian straggler detection,
+elastic resize around a ``sched.Scheduler``) and ``compression`` (int8 and
+top-k gradient compression with error feedback).  The reference's sharding
+comes with ROADMAP item 10."""
 from .simulated_cluster import SimulatedCluster, WorkerSpec
 
 __all__ = ["SimulatedCluster", "WorkerSpec"]

@@ -10,6 +10,11 @@ Multi-stage pipelines lift the same API to workflow DAGs (``sched.dag``):
 
 Estimation of the whole DAG is one stacked (S*K)-worker fleet advance: one
 K1 launch per Gibbs sweep on a card.
+
+The legacy partitioner API (``HeterogeneityAwarePartitioner``,
+``optimize_fractions``, the positional-``risk_aversion``
+``quantize_fractions``) is the submodule ``sched.compat``, as in the
+reference; its names are not exported here.
 """
 from .dag import (
     DagProposeStats,
