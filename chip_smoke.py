@@ -193,6 +193,28 @@ result lines:
      embedding, the stacked q projection, the final norm's scale) on the
      card bitwise the CPU's; each call's ms, the peak memory, the int8
      payload's bytes.
+ 17. training (``repro_torch.train``): first three steps of ``make_train_step``
+     on the card against the CPU (reduced smollm-135m and granite-moe-3b in
+     float32: loss and grad norm at rtol 1e-5, m and v within 1e-4 of each
+     leaf's largest entry); then ``Trainer`` on full-width tinyllama-1.1b
+     (1.100 B bf16 parameters), RunConfig's defaults (remat "full", lr 3e-4)
+     but batch 16 x 512 in 8 microbatches, 32 steps, warmup 3, a drain every
+     16 steps and ``int8_ef`` compression, over ``launch/train.py``'s four
+     simulated workers: step ms (median and range after 2 warm-up steps),
+     tokens/s, peak memory, losses, splits, makespans; every loss finite,
+     the last quarter's mean loss and makespan below the first's, a split
+     proposed, 40 K1 launches (20 an observe, 2 drains); one microbatch's
+     forward and backward under remat "none" and "full", ms, memory and
+     operations dispatched; one more step under ``torch.profiler``: its
+     host ms, its kernels' ms, the card's idle share, the top kernels;
+ 18. ``repro_torch.launch.train.main`` on full-width smollm-135m (16 steps,
+     then ``--resume --steps 8`` from step 16; 20 K1 launches), then
+     tests/test_system.py's exact resume at this width on ``Trainer``
+     objects (8 sequences of 128 in 4 microbatches, the test's layout: 8
+     steps, save, 4 more; a fresh trainer restored at 8 and 4 steps;
+     losses at rtol 1e-4), the bytes written and the ms of save,
+     wait and restore; then K1 against its plain version at the trainer's
+     (4, 256, 32).
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -2647,6 +2669,278 @@ def phase_compression(device="cuda", cfg=None):
         f"{4 * numel / 2**30:.2f} GiB)")
 
 
+# Phase 17: the trainer on full-width tinyllama-1.1b (RunConfig's defaults
+# but these; launch/train.py's four simulated workers).
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_WARM = "tinyllama-1.1b", 32, 2
+TRAIN_RUN = dict(warmup_steps=3, partitioner_refit_every=16, grad_compression="int8_ef")
+TRAIN_SHAPE = dict(seq_len=512, global_batch=16)
+TRAIN_MB, TRAIN_WORKERS = 8, 4
+TRAIN_DIR = ROOT / "build" / "train_ckpt"  # git-ignored; emptied first, removed after
+# The train step on the card against the CPU, float32, TF32 off, reduced
+# width: the two devices sum in different orders, ~1e-6 relative a layer.
+TRAIN_PARITY = dict(loss=1e-5, moments=1e-4)  # rtol; moments: of each leaf's largest entry
+TRAIN_PARITY_ARCHS = ("smollm-135m", "granite-moe-3b-a800m")
+# Phase 18: python -m repro_torch.launch.train on full-width smollm-135m.
+TRAIN_CLI_ARGV = ["--arch", "smollm-135m", "--full", "--seq-len", "128", "--global-batch", "16",
+                  "--microbatches", "8", "--workers", "4"]
+RESUME_RTOL = 1e-4  # tests/test_system.py::test_checkpoint_restart_resumes_exactly
+
+
+def phase_train_parity(device="cuda"):
+    """Phase 17's preamble: three steps of ``make_train_step`` (remat
+    "full", 4 microbatches, lr 1e-3 after a warmup of 1) on the card and on
+    the CPU, the same seeded weights and batches, reduced smollm-135m and
+    granite-moe-3b-a800m in float32: loss and grad norm at rtol 1e-5, m and v
+    within 1e-4 of each leaf's largest entry.  Returns the worst relative
+    errors."""
+    import torch
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
+    from repro_torch.data.pipeline import DataIterator
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import ApplyCtx
+    from repro_torch.models.params import leaves, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    worst = dict(loss=0.0, moments=0.0)
+    for arch in TRAIN_PARITY_ARCHS:
+        cfg = reduced(get_arch(arch))
+        run = RunConfig(model=cfg, shape=ShapeConfig("parity", 32, 8, "train"), learning_rate=1e-3,
+                        warmup_steps=1, total_steps=3)
+        step = make_train_step(cfg, run, ctx=ApplyCtx(mode="train", remat="full"),
+                               num_microbatches=4)
+        cpu_p = model_zoo.init_model_params(cfg, seed=17, device="cpu")
+        dev_p = tree_map(lambda p: p.to(device), cpu_p)
+        cpu_s, dev_s = adamw.init(cpu_p), adamw.init(dev_p)
+        data = DataIterator(cfg.vocab_size, 32, 8, 4, seed=17)
+        for s in range(3):
+            batch = {k: torch.as_tensor(v) for k, v in next(data).items()}
+            cpu_p, cpu_s, cm = step(cpu_p, cpu_s, batch, s)
+            dev_p, dev_s, dm = step(dev_p, dev_s, {k: v.to(device) for k, v in batch.items()}, s)
+            for key in ("loss", "grad_norm"):
+                rel = abs(float(dm[key]) - float(cm[key])) / abs(float(cm[key]))
+                worst["loss"] = max(worst["loss"], rel)
+                if rel > TRAIN_PARITY["loss"]:
+                    raise AssertionError(f"[train-parity] {arch} step {s} {key}: {float(dm[key])} "
+                                         f"on {device}, {float(cm[key])} on the CPU")
+            for got, want in zip(leaves(dev_s.m) + leaves(dev_s.v), leaves(cpu_s.m) + leaves(cpu_s.v)):
+                scale = float(want.abs().max())
+                rel = float((got.cpu() - want).abs().max()) / max(scale, 1e-30)
+                worst["moments"] = max(worst["moments"], rel)
+                if rel > TRAIN_PARITY["moments"]:
+                    raise AssertionError(f"[train-parity] {arch} step {s}: a {tuple(want.shape)} "
+                                         f"moment {rel:.3e} of its largest entry apart")
+        say(f"[train-parity] {cfg.name}: 3 steps on {device} against the CPU, loss {float(dm['loss']):.6f} "
+            f"/ {float(cm['loss']):.6f}")
+    say(f"[train-parity] worst: loss and grad norm {worst['loss']:.3e} (rtol "
+        f"{TRAIN_PARITY['loss']:g}), m and v {worst['moments']:.3e} of a leaf's largest entry "
+        f"({TRAIN_PARITY['moments']:g})")
+    return worst
+
+
+def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_MB):
+    """Phase 17: ``Trainer`` on full-width tinyllama-1.1b, one step a
+    ``train(1)`` call timed on the host's clock (synchronised; the loss read
+    every step, as the reference does); the loss and makespan conditions of
+    tests/test_system.py::test_training_converges_and_rebalances; then one
+    microbatch's forward and backward under remat "none" and "full".
+    Returns (K1 launches, the trainer's K1 shape (K, G, N))."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch
+    from repro_torch.distributed.simulated_cluster import SimulatedCluster
+    from repro_torch.launch.train import simulated_fleet
+    from repro_torch.models.layers import ApplyCtx
+    from repro_torch.models.params import leaves
+    from repro_torch.train.train_step import microbatch_value_and_grad
+    from repro_torch.train.trainer import Trainer
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        """Counts the PyTorch operations dispatched inside the ``with``
+        block (``examples/profile_kernels_torch.py``'s counter)."""
+
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = cfg or get_arch(TRAIN_ARCH)
+    shape = shape or TRAIN_SHAPE
+    on_card = torch.device(device).type == "cuda"
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    run = RunConfig(model=cfg, shape=ShapeConfig("phase17", kind="train", **shape),
+                    total_steps=steps, checkpoint_every=10**9,  # no checkpoint of ~11 GB
+                    checkpoint_dir=str(TRAIN_DIR), **TRAIN_RUN)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trainer = Trainer(run, cluster=SimulatedCluster(simulated_fleet(TRAIN_WORKERS)),
+                      num_microbatches=m, device=device)
+    losses, splits, makespans, ms = [], [], [], []
+    for _ in range(steps):
+        report, t = clock(device, lambda: trainer.train(1))
+        losses += report.losses
+        splits += report.splits
+        makespans += report.makespans
+        ms.append(t)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    n_params = sum(p.numel() for p in leaves(trainer.params))
+    timed = ms[TRAIN_WARM:]
+    med = statistics.median(timed)
+    tokens = shape["global_batch"] * shape["seq_len"]
+    say(f"[train] {cfg.name} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params} {cfg.dtype} parameters), batch {shape['global_batch']} x {shape['seq_len']} in "
+        f"{m} microbatches, remat {run.remat}, {run.grad_compression}, {steps} steps on {device}")
+    say(f"[train] step {med:.1f} ms median ({min(timed):.1f}-{max(timed):.1f} over steps "
+        f"{TRAIN_WARM + 1}-{steps}; the first two {ms[0]:.1f}, {ms[1]:.1f}), "
+        f"{tokens / (med / 1e3):.0f} tokens/s, peak device memory {peak / 2**30:.2f} GiB")
+    half = steps // 2
+    say(f"[train] every step's ms: {[round(t, 1) for t in ms]} (drains after steps "
+        f"{list(range(run.partitioner_refit_every, steps + 1, run.partitioner_refit_every))})")
+    say(f"[train] loss at step 1 {losses[0]:.4f}, step {half} {losses[half - 1]:.4f}, step {steps} "
+        f"{losses[-1]:.4f}")
+    q = max(steps // 4, 1)
+    first, last = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
+    m_first, m_last = float(np.mean(makespans[:q])), float(np.mean(makespans[-q:]))
+    say(f"[train] splits {[s.tolist() for s in splits]}; mean loss first quarter {first:.4f}, last "
+        f"{last:.4f}; mean makespan first quarter {m_first:.3f}, last {m_last:.3f}")
+    say(f"[train] launches on the main path: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train] a loss is not finite: {losses}")
+    if not last < first:
+        raise AssertionError(f"[train] the last quarter's loss {last} is not below the first's {first}")
+    if not splits:
+        raise AssertionError("[train] the partitioner proposed no split")
+    if not m_last < m_first:
+        raise AssertionError(f"[train] the last quarter's makespan {m_last} is not below {m_first}")
+    k1_shape = (TRAIN_WORKERS, trainer.partitioner.config.grid_size, trainer._ring.capacity)
+
+    batch = {key: torch.as_tensor(v[0]).to(device) for key, v in next(trainer.data).items()}
+    for remat in ("none", "full"):
+        vg = microbatch_value_and_grad(cfg, ApplyCtx(mode="train", remat=remat))
+        with CountOps() as count:
+            vg(trainer.params, batch)  # warm
+        if on_card:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        times = [clock(device, lambda: vg(trainer.params, batch))[1] for _ in range(3)]
+        extra = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+        say(f"[train] one microbatch ({batch['tokens'].shape[0]} x {shape['seq_len']}) forward and "
+            f"backward, remat {remat}: {statistics.median(times):.1f} ms (median of 3), peak "
+            f"{extra / 2**30:.2f} GiB above the {base / 2**30 if on_card else 0:.2f} GiB held; "
+            f"{count.n} PyTorch operations dispatched")
+    if on_card:  # where a step's time goes: one more step under the profiler (kernels only)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = clock(device, lambda: trainer.train(1))
+        kern = [e for e in prof.key_averages() if e.device_time_total > 0]
+        busy = sum(e.device_time_total for e in kern) / 1e3
+        say(f"[train] a profiled step: {wall:.1f} ms on the host's clock, {busy:.1f} ms of kernels, "
+            f"the card idle {100 * (1 - busy / wall):.1f} %; {sum(e.count for e in kern)} kernels")
+        for e in sorted(kern, key=lambda e: -e.device_time_total)[:8]:
+            say(f"[train]   {e.key[:80]}: {e.count} x, {e.device_time_total / 1e3:.1f} ms")
+    del trainer
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return launches, k1_shape
+
+
+def phase_train_cli(device=None, full=True):
+    """Phase 18: ``python -m repro_torch.launch.train`` in-process on
+    full-width smollm-135m (16 steps, checkpoints at 8 and 16), then
+    ``--resume --steps 8``, which must restore step 16; then
+    tests/test_system.py::test_checkpoint_restart_resumes_exactly at this
+    width on ``Trainer`` objects, with the bytes written, the ms that
+    ``save`` holds the host, the ms to ``wait()`` and the restore ms.
+    Returns K1 launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
+    from repro_torch.distributed.simulated_cluster import SimulatedCluster
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import Trainer
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    argv = TRAIN_CLI_ARGV + ["--ckpt-dir", str(TRAIN_DIR)] + (["--device", device] if device else [])
+    if not full:
+        argv.remove("--full")
+    kernels.reset_launch_counts()
+    first, s1 = clock(device or "cuda", lambda: launch_train.main(argv + ["--steps", "16"]))
+    second, s2 = clock(device or "cuda", lambda: launch_train.main(argv + ["--steps", "8", "--resume"]))
+    launches = kernels.launch_counts()
+    say(f"[train-cli] the two calls took {s1:.0f} and {s2:.0f} ms (model init, 16 and 8 steps, "
+        f"checkpoints at steps 8, 16 and 20, 24, the restore)")
+    rep = second["report"]
+    restored_at = rep.steps - len(rep.losses)
+    say(f"[train-cli] {first['trainer'].cfg.name}: 16 steps, losses {first['report'].losses[0]:.4f} "
+        f"-> {first['report'].losses[-1]:.4f}; --resume restored step {restored_at} and trained to "
+        f"{rep.steps}: {[round(x, 4) for x in rep.losses]}")
+    if not (second["resumed"] and restored_at == 16 and rep.steps == 24):
+        raise AssertionError(f"[train-cli] resume: {second['resumed']}, from {restored_at}")
+    if not all(np.isfinite(first["report"].losses + rep.losses)):
+        raise AssertionError("[train-cli] a loss is not finite")
+    say(f"[train-cli] launches on the main path: {launches}")
+    device = first["trainer"].device
+    del first, second
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # the reference test's layout (8 sequences in 4 microbatches, warmup 2,
+    # 16 steps in all) at this width, 128 tokens a sequence
+    cfg = get_arch("smollm-135m") if full else reduced(get_arch("smollm-135m"))
+    run = RunConfig(model=cfg, shape=ShapeConfig("resume", 128, 8, "train"), total_steps=16,
+                    warmup_steps=2, checkpoint_every=10**9, checkpoint_dir=str(TRAIN_DIR))
+    fleet = lambda: SimulatedCluster(launch_train.simulated_fleet(4), seed=2)
+    tr1 = Trainer(run, cluster=fleet(), num_microbatches=4, device=device)
+    tr1.train(8)
+    _, save_ms = clock(device, tr1.save)
+    _, wait_ms = clock(device, tr1.ckpt.wait)
+    nbytes = sum(f.stat().st_size for f in TRAIN_DIR.rglob("*") if f.is_file())
+    want = tr1.train(4).losses
+    tr2 = Trainer(run, cluster=fleet(), num_microbatches=4, device=device)
+    ok, restore_ms = clock(device, tr2.try_restore)
+    if not (ok and tr2.step == 8):
+        raise AssertionError(f"[train-cli] restore: {ok}, step {tr2.step}")
+    got = tr2.train(4).losses
+    worst = float(np.max(np.abs(np.asarray(got) - want) / np.abs(want)))
+    say(f"[train-cli] resume at step 8: {nbytes} bytes written; save holds the host {save_ms:.1f} "
+        f"ms, wait() {wait_ms:.1f} ms, restore {restore_ms:.1f} ms; 4 losses "
+        f"{[round(x, 5) for x in got]} against {[round(x, 5) for x in want]}, worst rel "
+        f"{worst:.3e} (rtol {RESUME_RTOL:g})")
+    if not worst <= RESUME_RTOL:
+        raise AssertionError("[train-cli] the resumed losses differ from the uninterrupted run's")
+    del tr1, tr2
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    return launches
+
+
+def phase_train_k1_parity(shape):
+    """K1 against its plain version at the shape the trainer gave it: its
+    K workers, grid G and ring capacity N, both modes.  Returns max |err|."""
+    from repro_torch.kernels.posterior_grid import posterior_grid_fleet, posterior_grid_plain
+
+    worst = 0.0
+    k, g, n = shape
+    for sym in (True, False):
+        args = fleet_case(k, g, n, seed=1700, device="cuda")
+        err, rel = assert_logp_close(posterior_grid_fleet(*args, symmetric_grid=sym),
+                                     posterior_grid_plain(*args, symmetric_grid=sym))
+        worst = max(worst, err)
+        say(f"[train-parity] K1 {'mirrored' if sym else 'general '} K={k} G={g} N={n}: max|err| "
+            f"{err:.3e}; over its row's 1 + max|logp| {rel:.3e} within rtol {RTOL:g}")
+    return worst
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -2735,6 +3029,15 @@ def main() -> int:
     if fault_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0):
         raise AssertionError(f"[fault] launches {fault_launches}, not {SWEEPS} of K1")
     phase_compression()
+    phase_train_parity()
+    train_launches, train_k1 = phase_train()
+    drains = TRAIN_STEPS // TRAIN_RUN["partitioner_refit_every"]
+    if train_launches != dict(posterior_grid_fleet=SWEEPS * drains, decode_attention=0, lru_scan=0):
+        raise AssertionError(f"[train] launches {train_launches}, not {SWEEPS} x {drains} of K1")
+    cli_launches = phase_train_cli()
+    if cli_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0):
+        raise AssertionError(f"[train-cli] launches {cli_launches}, not {SWEEPS} of K1 (one drain)")
+    errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(train_k1))
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
                    serve_whisper=whisper_launches, serve_internvl2=internvl_launches,
@@ -2743,7 +3046,8 @@ def main() -> int:
                    partitioned=part_launches, partitioned_internvl2=vlm_launches,
                    dag=dag_launches, serve_tinyllama=tinyllama_launches,
                    example_partitioned=example_launches, checkpoint=ckpt_launches,
-                   legacy=legacy_launches, fault_tolerance=fault_launches)
+                   legacy=legacy_launches, fault_tolerance=fault_launches,
+                   train=train_launches, train_cli=cli_launches)
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),
         ("decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:81"),

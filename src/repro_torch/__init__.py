@@ -2,7 +2,7 @@
 
 Mirrors the layout of the JAX package ``repro`` (``core``, ``kernels``,
 ``sched``, ``hier``, ``serve``, ``distributed``, ``configs``, ``models``,
-``train``, ``launch``, ``checkpoint``) and never imports
+``optim``, ``data``, ``train``, ``launch``, ``checkpoint``) and never imports
 it or JAX.  Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the kernels are hand-written for Hopper and built with
 ``nvcc`` at first use.
@@ -13,8 +13,8 @@ layer imports only what it builds on: ``import repro_torch.core`` leaves
 """
 import importlib
 
-__all__ = ["checkpoint", "configs", "convert", "core", "distributed", "hier", "kernels", "models",
-           "sched", "serve", "train"]
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "distributed", "hier", "kernels",
+           "launch", "models", "optim", "sched", "serve", "train"]
 
 
 def __getattr__(name):

@@ -19,7 +19,8 @@ from . import (
     xlstm_1_3b,
     yi_9b,
 )
-from .base import ModelConfig, ShapeConfig, reduced
+from .base import ModelConfig, RunConfig, ShapeConfig, reduced
+from .shapes import ALL_SHAPES, SHAPES, applicable
 
 ARCHS: Dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -34,4 +35,11 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ModelConfig", "ShapeConfig", "get_arch", "reduced"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ARCHS", "ALL_SHAPES", "SHAPES", "ModelConfig", "RunConfig", "ShapeConfig",
+           "applicable", "get_arch", "get_shape", "reduced"]

@@ -1,13 +1,13 @@
-"""Config dataclasses: model architecture and input shapes.
+"""Config dataclasses: model architecture, input shapes and run settings.
 
-A copy of the reference's ``ModelConfig``, ``ShapeConfig`` and ``reduced``
-(``repro.configs.base``), field for field, so a configuration means the same
-model in both packages.  The run settings (``RunConfig``) wait for training.
+A copy of the reference's ``ModelConfig``, ``ShapeConfig``, ``RunConfig``
+and ``reduced`` (``repro.configs.base``), field for field with the same
+defaults, so a configuration means the same model and run in both packages.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +96,46 @@ class ShapeConfig:
     @property
     def is_serving(self) -> bool:
         return self.kind in ("prefill", "decode")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Training/serving run settings (driver-level)."""
+
+    model: ModelConfig
+    shape: ShapeConfig
+    microbatch_per_device: int = 1
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    remat: str = "full"  # none | full | dots
+    # AdamW moment dtype: bfloat16 for 100B+ models (HBM-fitting trade)
+    optimizer_dtype: str = "float32"
+    # gradient accumulation dtype (bfloat16 halves grad buffers; error is
+    # bounded by the later f32 optimizer math)
+    grad_dtype: str = "float32"
+    seed: int = 0
+    # distribution
+    multi_pod: bool = False
+    # partitioner (the paper's feature)
+    partitioner_enabled: bool = True
+    partitioner_risk_aversion: float = 0.0
+    partitioner_refit_every: int = 16  # drain cadence (steps per ring drain)
+    # propose cadence (repro_torch.serve drift gate): re-solve the split only
+    # when the posterior moved more than the threshold since the last solve,
+    # or after max_staleness drains, whichever comes first.  None opts into
+    # the self-calibrating EWMA gate (repro_torch.serve.gate).
+    partitioner_drift_threshold: Optional[float] = 0.02
+    partitioner_max_staleness: int = 4
+    # fault tolerance
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    straggler_threshold_sigma: float = 3.0
+    # gradient compression: none | int8_ef | topk_ef
+    grad_compression: str = "none"
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

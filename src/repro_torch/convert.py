@@ -8,7 +8,8 @@ state)`` on the JAX side), they become the port's states on a given device.
 Fields are read by name, so this module imports neither JAX nor ``repro``.
 The JAX ``key`` leaves are dropped: the port's generator is seeded from an
 explicit ``seed``.  A model's parameter tree has the same layout in both
-packages, so it carries over leaf for leaf (``model_params_from_jax``).
+packages, so it carries over leaf for leaf (``model_params_from_jax``), and
+so does the optimizer state over it (``adamw_state_from_jax``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .core.moments import BetaParams
 from .core.posterior import NormalGammaParams
 from .hier.hyperprior import Hyperprior
 from .models.params import tree_map
+from .optim.adamw import AdamWState
 from .sched.dag import DagState
 from .sched.scheduler import ProposeStats, SchedulerState
 from .serve.gate import GateState
@@ -44,6 +46,14 @@ def model_params_from_jax(tree, device):
     """A JAX model parameter tree (nested dicts and lists, numpy leaves) ->
     the port's tree on ``device``, each leaf in its own dtype."""
     return tree_map(lambda x: _leaf(x, device), tree)
+
+
+def adamw_state_from_jax(state, device) -> AdamWState:
+    """A JAX ``AdamWState`` (m, v: parameter trees, count; numpy leaves) ->
+    the port's on ``device``, each moment in its own dtype."""
+    return AdamWState(m=model_params_from_jax(state.m, device),
+                      v=model_params_from_jax(state.v, device),
+                      count=_tensor(state.count, device, torch.int32))
 
 
 def to_gibbs_state(tree, device) -> GibbsState:

@@ -70,7 +70,13 @@ def lru_scan_plain(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
 def lru_scan_cuda(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     """Launch K3 on the current stream: a, b (B, T, R) both float32 or both
     bfloat16, h0 (B, R), on one CUDA device.  Returns (B, T, R) in a's
-    dtype."""
+    dtype.  The kernel has no backward yet (ROADMAP item 12d): under autograd
+    with an input that requires a gradient it raises, as its output would
+    carry none and the gradients of a, b and h0 would silently be lost."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):
+        raise NotImplementedError(
+            "lru_scan_cuda has no backward yet (ROADMAP item 12d, K3's reverse-time scan): "
+            "the hybrid family cannot train on the card; run it under torch.no_grad()")
     if not all(x.is_cuda and x.device == a.device for x in (a, b, h0)):
         raise ValueError("lru_scan_cuda takes tensors on one CUDA device")
     if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:

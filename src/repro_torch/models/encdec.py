@@ -35,7 +35,6 @@ def encoder_spec(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-@torch.no_grad()
 def encode(cfg: ModelConfig, enc_params: Dict[str, Any], frames: Tensor, *,
            ctx: ApplyCtx) -> Tensor:
     """frames (B, encoder_seq, d_model) -> enc_out (B, encoder_seq, d_model).

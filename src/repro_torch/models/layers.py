@@ -1,7 +1,8 @@
 """Shared transformer layers: RMSNorm, RoPE, MLPs (with optional biases) and
 GQA attention (causal, local, full or cross; train, prefill and decode).
 
-The port's counterpart of ``repro.models.layers``, forward only.  Layouts are
+The port's counterpart of ``repro.models.layers``, differentiable by
+autograd.  Layouts are
 the reference's: activations (B, T, D), ``wq`` (D, H, hd), caches
 (B, S, KVH, hd).  Prefill and train attention is plain einsum and softmax over
 query chunks, as the reference computes it outside Pallas; decode attention,
@@ -27,10 +28,12 @@ NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class ApplyCtx:
-    """Per-call context: execution mode and the query chunk of attention."""
+    """Per-call context: execution mode, the query chunk of attention, and
+    the layer-cycle rematerialisation of training (``transformer._run_stack``)."""
 
     mode: str = "train"  # train | prefill | decode
     q_chunk: int = 2048
+    remat: str = "none"  # layer-cycle remat in train mode: none | full (dots, outs: item 15)
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,7 @@ def _encode(cfg: ModelConfig, params, batch: Dict[str, Tensor], ctx: ApplyCtx) -
 
 
 def forward_train(cfg: ModelConfig, params, batch: Dict[str, Tensor], *, ctx: ApplyCtx):
-    """(logits, aux_loss) for a batch dict (forward only)."""
+    """(logits, aux_loss) for a batch dict; differentiable."""
     return transformer.forward_train(cfg, params, batch["tokens"], ctx=ctx,
                                      vision=batch.get("vision"),
                                      enc_out=_encode(cfg, params, batch, ctx))

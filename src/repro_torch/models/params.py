@@ -43,6 +43,12 @@ def leaves(tree) -> list:
     return out
 
 
+def unflatten(like, values):
+    """``like``'s tree with ``values`` for its leaves, in ``leaves`` order."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), like)
+
+
 def stack_spec(spec: SpecTree, n: int, axis_name: str = "layers") -> SpecTree:
     """Add a leading stacked axis to every leaf (per-cycle storage)."""
     return tree_map(lambda p: p.stacked(n, axis_name), spec)

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import moe as moe_lib
@@ -202,20 +203,37 @@ def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions:
                length: Optional[Tensor], cache: Optional[Dict[str, Any]],
                enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """The layer loop: every cycle of the pattern, then the remainder.
-    Returns (x, the sum of the blocks' aux losses)."""
+    Returns (x, the sum of the blocks' aux losses).  In train mode with
+    ``ctx.remat == "full"`` each cycle runs under activation checkpointing
+    (its activations are recomputed in the backward pass), as the reference
+    wraps its cycle in ``jax.checkpoint``; the remainder is not wrapped."""
     n_cycles, rest = _cycles_and_rest(cfg)
     use = cache is not None
-    layers = [
-        (kind, _at(params["cycles"][j], i), _at(cache["cycles"][j], i) if use else None)
-        for i in range(n_cycles) for j, kind in enumerate(cfg.pattern)
-    ] + [(kind, params["rest"][j], cache["rest"][j] if use else None) for j, kind in enumerate(rest)]
+    train = ctx.mode == "train"
+    if train and ctx.remat in ("dots", "outs"):
+        raise NotImplementedError(f"remat {ctx.remat!r} (a saving policy) is ROADMAP item 15; "
+                                  "use 'full' or 'none'")
+    if train and ctx.remat not in ("none", "full"):
+        raise ValueError(f"remat {ctx.remat!r}: none | full | dots | outs")
+
+    def run(layers, x, aux):
+        for kind, p, c in layers:
+            x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length,
+                               cache=c, enc_out=enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p, c in layers:
-        x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length, cache=c,
-                           enc_out=enc_out)
-        if a is not None:
-            aux = aux + a
-    return x, aux
+    for i in range(n_cycles):
+        cycle = [(kind, _at(params["cycles"][j], i), _at(cache["cycles"][j], i) if use else None)
+                 for j, kind in enumerate(cfg.pattern)]
+        if train and ctx.remat == "full" and torch.is_grad_enabled():
+            x, aux = checkpoint(run, cycle, x, aux, use_reentrant=False)
+        else:
+            x, aux = run(cycle, x, aux)
+    return run([(kind, params["rest"][j], cache["rest"][j] if use else None)
+                for j, kind in enumerate(rest)], x, aux)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict[str, Any]:
@@ -233,13 +251,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dic
     }
 
 
-@torch.no_grad()
 def forward_train(cfg: ModelConfig, params, tokens: Tensor, *, ctx: ApplyCtx,
                   vision: Optional[Tensor] = None,
                   enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Full-sequence forward (no gradient yet).  Returns (logits (B,T,V), aux),
+    """Full-sequence forward, differentiable.  Returns (logits (B,T,V), aux),
     aux the sum of the MoE blocks' load-balance losses (0 without any); with
-    ``vision`` T counts the patches before the tokens."""
+    ``vision`` T counts the patches before the tokens.  Parameters that do
+    not require a gradient build no graph."""
     x = _embed(cfg, params, tokens, vision)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None,

@@ -1,4 +1,5 @@
-"""Serving steps of the port (training waits for a later slice)."""
-from . import serve_step
+"""Training and serving steps of the port, and the trainer
+(``train.trainer``, imported on its own: it builds on the scheduler)."""
+from . import serve_step, train_step
 
-__all__ = ["serve_step"]
+__all__ = ["serve_step", "train_step"]
