@@ -9,9 +9,10 @@ result lines:
   1. environment: the card's name and power limit, torch and CUDA versions,
      TF32 off;
   2. build: every CUDA kernel of the port (K1 posterior grid, K2 decode
-     attention, K3 linear-recurrence scan), from ``src/repro_torch/kernels/csrc``,
-     into ``build/kernels`` (one ``nvcc`` per source, all started together),
-     with ptxas's registers and spills of every entry function;
+     attention, K3 linear-recurrence scan and its backward, two entry points
+     of one source), from ``src/repro_torch/kernels/csrc``, into
+     ``build/kernels`` (one ``nvcc`` per source, all started together), with
+     ptxas's registers and spills of every entry function;
   3. each kernel against its plain PyTorch version on the card, at odd
      shapes, at the reference kernel tests' shapes and at the shapes the main
      paths give it: K1 in both its modes (mirrored and general), the
@@ -23,7 +24,11 @@ result lines:
      bfloat16 query, K3 at the ragged edges
      of its tiling, with decays near 1 (where every chunk's carry shows) and
      from rows that are not 16-byte aligned, and K3's output bitwise the
-     same on two calls and on replays of a CUDA graph;
+     same on two calls and on replays of a CUDA graph; then K3's backward
+     (``lru_scan_bwd`` through ``LruScan``) against ``torch.autograd.grad``
+     through the plain version with the same dy, at those cases in both
+     types and at the training path's (2, 512, 2560), h0 != 0, each case
+     synchronised under a host-side timeout, and two calls bitwise equal;
   4. each kernel's device time at its main path's shape (median of
      CUDA-event-timed replays of a CUDA graph of repeated calls), its plain
      version's time, its bound, for K1 the general mode's time and the
@@ -32,7 +37,10 @@ result lines:
      decode shapes of phases 7d-7g and 7j, whisper's cross cache among them,
      under ``by_shape``, each with its share of the bound), and for K3 the
      stream yardstick ``torch.add(a, x, out=h)``, which moves its bytes, and
-     its time from rows that are not 16-byte aligned (plain loads, not TMA);
+     its time from rows that are not 16-byte aligned (plain loads, not TMA),
+     and its time at the training path's (2, 512, 2560); K3's backward at
+     (2, 512, 2560) and, under ``by_shape``, at the prefill shape, each
+     against its byte bound (a, dy and h read, da and db written);
   5. the paper's two-unit quickstart on the card: parameter recovery and f*
      per objective;
   6. the fleet cycle, slice 1's main path: K = 4096 heterogeneous workers, 3
@@ -193,20 +201,22 @@ result lines:
      embedding, the stacked q projection, the final norm's scale) on the
      card bitwise the CPU's; each call's ms, the peak memory, the int8
      payload's bytes.
- 17. training (``repro_torch.train``): first three steps of ``make_train_step``
-     on the card against the CPU (reduced smollm-135m and granite-moe-3b in
-     float32: loss and grad norm at rtol 1e-5, m and v within 1e-4 of each
-     leaf's largest entry); then ``Trainer`` on full-width tinyllama-1.1b
-     (1.100 B bf16 parameters), RunConfig's defaults (remat "full", lr 3e-4)
-     but batch 16 x 512 in 8 microbatches, 32 steps, warmup 3, a drain every
-     16 steps and ``int8_ef`` compression, over ``launch/train.py``'s four
-     simulated workers: step ms (median and range after 2 warm-up steps),
-     tokens/s, peak memory, losses, splits, makespans; every loss finite,
-     the last quarter's mean loss and makespan below the first's, a split
-     proposed, 40 K1 launches (20 an observe, 2 drains); one microbatch's
-     forward and backward under remat "none" and "full", ms, memory and
-     operations dispatched; one more step under ``torch.profiler``: its
-     host ms, its kernels' ms, the card's idle share, the top kernels;
+ 17. training (``repro_torch.train``): first three steps of
+     ``make_train_step`` on the card against the CPU (reduced smollm-135m,
+     granite-moe-3b and recurrentgemma-2b, whose scans run K3 and its
+     backward, in float32: loss and grad norm at rtol 1e-5, m and v within
+     1e-4 of each leaf's largest entry; K3 48 and its backward 24
+     launches); then ``Trainer`` on full-width tinyllama-1.1b (1.100 B bf16
+     parameters), RunConfig's defaults (remat "full", lr 3e-4) but batch 16
+     x 512 in 8 microbatches, 32 steps, warmup 3, a drain every 16 steps
+     and ``int8_ef`` compression, over ``launch/train.py``'s four simulated
+     workers: step ms (median and range after 2 warm-up steps), tokens/s,
+     peak memory, losses, splits, makespans; every loss finite, the last
+     quarter's mean loss and makespan below the first's, a split proposed,
+     40 K1 launches (20 an observe, 2 drains); one microbatch's forward and
+     backward under remat "none" and "full", ms, memory and operations
+     dispatched; one more step under ``torch.profiler``: its host ms, its
+     kernels' ms, the card's idle share, the top kernels;
  18. ``repro_torch.launch.train.main`` on full-width smollm-135m (16 steps,
      then ``--resume --steps 8`` from step 16; 20 K1 launches), then
      tests/test_system.py's exact resume at this width on ``Trainer``
@@ -215,6 +225,13 @@ result lines:
      losses at rtol 1e-4), the bytes written and the ms of save,
      wait and restore; then K1 against its plain version at the trainer's
      (4, 256, 32).
+ 19. the hybrid family trained: phase 17's ``Trainer`` on recurrentgemma-2b
+     at full width with its depth cut to 12 of 26 layers (4 whole cycles,
+     8 RG-LRU layers), 16 steps with a drain every 8: step ms, tokens/s,
+     peak memory, the loss and makespan conditions, K3 2 x 8 x 8 = 128
+     launches a step (the forward and remat's recompute) and its backward
+     64, K1 40; one microbatch under remat "none" and "full"; a profiled
+     step; then K1 against its plain version at the trainer's shape.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -324,8 +341,13 @@ def phase_build():
     build.build_all()
     say(f"[build] {sorted(build.launch_counts())} built in {time.perf_counter() - t0:.1f} s "
         f"into {build.BUILD_DIR.relative_to(ROOT)}")
+    seen = set()
     for name in sorted(build.launch_counts()):
-        for line in build.ptxas_report(name).splitlines():
+        report = build.ptxas_report(name)
+        if report in seen:  # another entry point of a source already reported
+            continue
+        seen.add(report)
+        for line in report.splitlines():
             if re.search(r"Compiling entry function|spill stores|Used \d+ registers", line):
                 say(f"[build] {name}: {line.strip()}")
 
@@ -378,6 +400,9 @@ def assert_close(got, want, rtol, atol) -> float:
 K2_PATH = (4, 10, 1, 256, 2048)
 # K3 at the serving path's prefill: B 4, T 4096, R 2560, float32.
 K3_PATH = (4, 4096, 2560)
+# K3 and its backward on the training path (phase 19): a microbatch of 2 x 512
+# tokens (16 x 512 in 8), R = d_model = 2560, float32 (the RG-LRU's gates).
+K3_TRAIN = (2, 512, 2560)
 # smollm-135m at full width (phase 7b): batch 4, 512-token prompts, 16 tokens;
 # K2 at its decode, (B 4, H 9, KVH 3, D 64, S = prompt + gen + 8 cache rows).
 SMOLLM_BATCH, SMOLLM_PROMPT, SMOLLM_GEN = 4, 512, 16
@@ -613,6 +638,97 @@ def phase_k3_parity():
     return worst
 
 
+def sync_within(seconds: float, what: str) -> None:
+    """``torch.cuda.synchronize()`` under a host-side timeout: a chained
+    carry that cannot finish shows as a hang, not as a wrong number (the
+    kernel's own watchdog traps after a second of waiting)."""
+    import threading
+
+    import torch
+
+    done, failed = threading.Event(), []
+
+    def wait():
+        try:
+            torch.cuda.synchronize()
+        except Exception as exc:  # noqa: BLE001 — handed to the caller's thread
+            failed.append(exc)
+        finally:
+            done.set()
+
+    threading.Thread(target=wait, daemon=True).start()
+    if not done.wait(seconds):
+        raise TimeoutError(f"{what}: the card did not finish within {seconds:g} s")
+    if failed:
+        raise failed[0]
+
+
+def scan_grads(fn, a, x, h0, dy):
+    """(da, db, dh0) of ``fn(a, x, h0)`` for the upstream gradient dy."""
+    import torch
+
+    leaves = [y.detach().requires_grad_() for y in (a, x, h0)]
+    return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+
+def phase_k3_backward_parity():
+    """K3's backward (``lru_scan_bwd``, through ``LruScan``) against
+    ``torch.autograd.grad`` through ``lru_scan_plain`` with the same dy, at
+    phase 3's K3 cases in both types (ragged T, R of 300 and 64, a last
+    chunk of one step, decays near 1, rows not 16-byte aligned) and at the
+    training path's (2, 512, 2560), h0 != 0 and requiring a gradient.  Each
+    of da, db and dh0 is held within 1e-5 (bfloat16: 4e-2) of its largest
+    entry: the kernel sums g in order and the plain version's autograd in a
+    log-depth order, and with decays near 1 an entry of da near 0 is a
+    difference of terms ~100.  Every case synchronises under a host-side
+    timeout; then two backward calls are bitwise equal.  Returns max |err|."""
+    import torch
+    from repro_torch.kernels.lru_scan import CHUNK, lru_scan, lru_scan_bwd_cuda, lru_scan_plain
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: 1e-5, bf16: 4e-2}
+    cases = [((b, t, r), dt, False) for (b, t, r) in [(2, 64, 128), (1, 100, 300), (3, 17, 64)]
+             for dt in (f32, bf16)]
+    for dt in (f32, bf16):
+        cases += [((1, 1, 2560), dt, False), ((2, CHUNK - 1, 300), dt, False),
+                  ((2, CHUNK + 1, 2560), dt, False), ((4, 4097, 2560), dt, False),
+                  ((4, 4097, 2560), dt, True), ((2, 513, 300), dt, True)]
+    cases += [(K3_PATH, f32, True), (K3_TRAIN, f32, False), (K3_TRAIN, f32, True),
+              (K3_TRAIN, f32, "misaligned"), ((2, 513, 300), bf16, "misaligned")]
+    worst = 0.0
+    for i, (shape, dt, near_one) in enumerate(cases):
+        a, x, h0 = scan_case(*shape, seed=500 + i, dtype=dt, near_one=bool(near_one))
+        dy = torch.randn(shape, generator=torch.Generator("cuda").manual_seed(600 + i),
+                         device="cuda").to(dt)
+        if near_one == "misaligned":
+            a, x, dy = misaligned(a), misaligned(x), misaligned(dy)
+        got = scan_grads(lru_scan, a, x, h0, dy)
+        sync_within(60, f"K3's backward at {shape}")
+        want = scan_grads(lru_scan_plain, a, x, h0, dy)
+        rels = []
+        for name, g, w in zip(("da", "db", "dh0"), got, want):
+            err, scale = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
+            if not bool(torch.isfinite(g).all()) or err > tol[dt] * scale:
+                raise AssertionError(f"K3's backward at {shape} {dt}: {name} max|err| {err:.3e} "
+                                     f"over {tol[dt]:g} x its largest entry {scale:.3e}")
+            worst = max(worst, err)
+            rels.append(err / scale)
+        decays = "a in [0.9, 0.9999)" if near_one else "a = sigmoid(N(0, 1))"
+        if near_one == "misaligned":
+            decays += ", rows not 16-byte aligned"
+        say(f"[k3-bwd-parity] (B, T, R)={shape} {dt} {decays}: da, db, dh0 max|err| over their "
+            f"largest entry {rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} within {tol[dt]:g}")
+    a, x, h0 = scan_case(*K3_TRAIN, seed=650, dtype=f32, near_one=True)
+    h = lru_scan(a, x, h0)
+    dy = torch.randn(K3_TRAIN, generator=torch.Generator("cuda").manual_seed(651), device="cuda")
+    once, again = lru_scan_bwd_cuda(a, h, h0, dy), lru_scan_bwd_cuda(a, h, h0, dy)
+    sync_within(60, "K3's backward, repeated")
+    if not all(torch.equal(u, v) for u, v in zip(once, again)):
+        raise AssertionError("K3's backward: two calls on the same inputs differ")
+    say(f"[k3-bwd-parity] (B, T, R)={K3_TRAIN} float32 a in [0.9, 0.9999): two calls bitwise equal")
+    return worst
+
+
 def time_cuda(fn, runs: int, reps: int = 10) -> float:
     """Median device milliseconds of one ``fn`` call: ``reps`` calls captured
     in a CUDA graph (after a warm-up on a side stream), the graph replayed
@@ -771,7 +887,60 @@ def phase_k3_timing():
         f"{nbytes:.3e} bytes); no single library call computes a linear recurrence")
     say(f"[k3-staging] (B, T, R)={K3_PATH} float32: TMA bulk copies {ms:.4f} ms, plain loads "
         f"(rows not 16-byte aligned) {plain_loads_ms:.4f} ms")
+    train = k3_timing(K3_TRAIN, scan_sets(K3_TRAIN), lambda a, x, h0, h, dy: lru_scan(a, x, h0),
+                      lambda a, x, h0, h, dy: lru_scan_plain(a, x, h0), "k3-time", 2, 1, 2)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                by_shape={str(K3_TRAIN): train})
+
+
+def scan_sets(shape, seed=70, n_sets=None):
+    """Input sets of K3 and its backward, taken in turn: (a, b, h0, the
+    forward's h, dy) in float32, by default at least four and together over
+    64 MB (more than the 50 MB L2)."""
+    import torch
+    from repro_torch.kernels.lru_scan import lru_scan
+
+    b, t, r = shape
+    n_sets = n_sets or max(4, -(-64_000_000 // (5 * 4 * b * t * r)))
+    sets = []
+    for i in range(n_sets):
+        a, x, h0 = scan_case(*shape, seed=seed + i, dtype=torch.float32)
+        dy = torch.randn(shape, generator=torch.Generator("cuda").manual_seed(seed + 100 + i),
+                         device="cuda")
+        sets.append((a, x, h0, lru_scan(a, x, h0), dy))
+    return sets
+
+
+def k3_timing(shape, sets, fn, plain, tag, reads, writes, ops_each):
+    """One K3 entry point at ``shape`` over ``sets``: its time, its plain
+    version's and its bound: ``reads`` and ``writes`` (B, T, R) float32
+    tensors and h0 read once, ``ops_each`` operations an element."""
+    b, t, r = shape
+    ms = time_cuda(round_robin(fn, sets), runs=20)
+    plain_ms = time_cuda(round_robin(plain, sets), runs=5, reps=3)
+    ops = float(ops_each) * b * t * r
+    nbytes = 4.0 * ((reads + writes) * b * t * r + b * r)
+    bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
+    say(f"[{tag}] (B, T, R)={shape} float32 ({len(sets)} input sets): kernel {ms:.4f} ms "
+        f"({100 * bound_ms / ms:.1f} % of the bound), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def phase_k3_backward_timing():
+    """K3's backward at the training path's (2, 512, 2560) (the kernel's time
+    in the result line) and at the serving path's prefill shape (under
+    ``by_shape``): it reads a, dy and h and writes da and db, 5/3 of the
+    forward's bytes.  No single library call computes a linear recurrence's
+    gradient."""
+    from repro_torch.kernels.lru_scan import lru_scan_backward_plain, lru_scan_bwd_cuda
+
+    fn = lambda a, x, h0, h, dy: lru_scan_bwd_cuda(a, h, h0, dy)
+    plain = lambda a, x, h0, h, dy: lru_scan_backward_plain(a, h, h0, dy)
+    # 3 operations an element: g = a g + dy (a multiply-add), da = g h
+    main_path = k3_timing(K3_TRAIN, scan_sets(K3_TRAIN), fn, plain, "k3-bwd-time", 3, 2, 3)
+    prefill = k3_timing(K3_PATH, scan_sets(K3_PATH, n_sets=1), fn, plain, "k3-bwd-time", 3, 2, 3)
+    return dict(main_path, by_shape={str(K3_PATH): prefill})
 
 
 def phase_quickstart():
@@ -1410,7 +1579,7 @@ def phase_partitioned(tag, argv, *, smoke=False):
     if smoke and not (c["proposes"] >= 1 and c["drains"] > c["proposes"]):
         raise AssertionError(f"[{tag}] serve-smoke condition fails: {c}")
     want = dict(posterior_grid_fleet=result["config"].sched.n_iters * drains,
-                lru_scan=layer_kinds(cfg).count("rglru") * rounds,
+                lru_scan=layer_kinds(cfg).count("rglru") * rounds, lru_scan_bwd=0,
                 decode_attention=attention_layers(cfg) * (part_arg("--gen-len", argv) - 1) * rounds)
     if launches != want:
         raise AssertionError(f"[{tag}] launches {launches}, not {want}")
@@ -2679,20 +2848,29 @@ TRAIN_DIR = ROOT / "build" / "train_ckpt"  # git-ignored; emptied first, removed
 # The train step on the card against the CPU, float32, TF32 off, reduced
 # width: the two devices sum in different orders, ~1e-6 relative a layer.
 TRAIN_PARITY = dict(loss=1e-5, moments=1e-4)  # rtol; moments: of each leaf's largest entry
-TRAIN_PARITY_ARCHS = ("smollm-135m", "granite-moe-3b-a800m")
+TRAIN_PARITY_ARCHS = ("smollm-135m", "granite-moe-3b-a800m", "recurrentgemma-2b")
 # Phase 18: python -m repro_torch.launch.train on full-width smollm-135m.
 TRAIN_CLI_ARGV = ["--arch", "smollm-135m", "--full", "--seq-len", "128", "--global-batch", "16",
                   "--microbatches", "8", "--workers", "4"]
 RESUME_RTOL = 1e-4  # tests/test_system.py::test_checkpoint_restart_resumes_exactly
+# Phase 19: the hybrid family trained on the card.  recurrentgemma-2b at full
+# width, its depth cut to 12 of 26 layers (4 whole (rglru, rglru, localattn)
+# cycles, 8 RG-LRU layers; ~1.68 B parameters, as 26 would need ~104 GiB at
+# phase 17's ~36 GiB a billion), phase 17's settings but 16 steps with a drain
+# every 8: with one drain every 16, the only split would land after the last
+# step, and the makespan could not fall.
+HYBRID_ARCH, HYBRID_LAYERS, HYBRID_STEPS = "recurrentgemma-2b", 12, 16
+HYBRID_RUN = dict(TRAIN_RUN, partitioner_refit_every=8)
 
 
 def phase_train_parity(device="cuda"):
     """Phase 17's preamble: three steps of ``make_train_step`` (remat
     "full", 4 microbatches, lr 1e-3 after a warmup of 1) on the card and on
-    the CPU, the same seeded weights and batches, reduced smollm-135m and
-    granite-moe-3b-a800m in float32: loss and grad norm at rtol 1e-5, m and v
-    within 1e-4 of each leaf's largest entry.  Returns the worst relative
-    errors."""
+    the CPU, the same seeded weights and batches, reduced smollm-135m,
+    granite-moe-3b-a800m and recurrentgemma-2b (on the card its scans run
+    K3 and K3's backward, on the CPU their plain versions) in float32: loss
+    and grad norm at rtol 1e-5, m and v within 1e-4 of each leaf's largest
+    entry.  Returns the worst relative errors."""
     import torch
     from repro_torch.configs import RunConfig, ShapeConfig, get_arch, reduced
     from repro_torch.data.pipeline import DataIterator
@@ -2738,13 +2916,16 @@ def phase_train_parity(device="cuda"):
     return worst
 
 
-def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_MB):
-    """Phase 17: ``Trainer`` on full-width tinyllama-1.1b, one step a
-    ``train(1)`` call timed on the host's clock (synchronised; the loss read
-    every step, as the reference does); the loss and makespan conditions of
+def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_MB,
+                run_kw=None, tag="train"):
+    """Phase 17 (and 19 with ``cfg``, ``steps``, ``run_kw`` and ``tag``):
+    ``Trainer`` on full-width tinyllama-1.1b, one step a ``train(1)`` call
+    timed on the host's clock (synchronised; the loss read every step, as
+    the reference does); the loss and makespan conditions of
     tests/test_system.py::test_training_converges_and_rebalances; then one
-    microbatch's forward and backward under remat "none" and "full".
-    Returns (K1 launches, the trainer's K1 shape (K, G, N))."""
+    microbatch's forward and backward under remat "none" and "full", and on
+    the card one more step under the profiler.  Returns (the launches of the
+    timed steps, the trainer's K1 shape (K, G, N))."""
     import shutil
 
     import numpy as np
@@ -2775,7 +2956,7 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     run = RunConfig(model=cfg, shape=ShapeConfig("phase17", kind="train", **shape),
                     total_steps=steps, checkpoint_every=10**9,  # no checkpoint of ~11 GB
-                    checkpoint_dir=str(TRAIN_DIR), **TRAIN_RUN)
+                    checkpoint_dir=str(TRAIN_DIR), **(run_kw or TRAIN_RUN))
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2795,31 +2976,31 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
     timed = ms[TRAIN_WARM:]
     med = statistics.median(timed)
     tokens = shape["global_batch"] * shape["seq_len"]
-    say(f"[train] {cfg.name} at full width ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+    say(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params} {cfg.dtype} parameters), batch {shape['global_batch']} x {shape['seq_len']} in "
         f"{m} microbatches, remat {run.remat}, {run.grad_compression}, {steps} steps on {device}")
-    say(f"[train] step {med:.1f} ms median ({min(timed):.1f}-{max(timed):.1f} over steps "
+    say(f"[{tag}] step {med:.1f} ms median ({min(timed):.1f}-{max(timed):.1f} over steps "
         f"{TRAIN_WARM + 1}-{steps}; the first two {ms[0]:.1f}, {ms[1]:.1f}), "
         f"{tokens / (med / 1e3):.0f} tokens/s, peak device memory {peak / 2**30:.2f} GiB")
     half = steps // 2
-    say(f"[train] every step's ms: {[round(t, 1) for t in ms]} (drains after steps "
+    say(f"[{tag}] every step's ms: {[round(t, 1) for t in ms]} (drains after steps "
         f"{list(range(run.partitioner_refit_every, steps + 1, run.partitioner_refit_every))})")
-    say(f"[train] loss at step 1 {losses[0]:.4f}, step {half} {losses[half - 1]:.4f}, step {steps} "
+    say(f"[{tag}] loss at step 1 {losses[0]:.4f}, step {half} {losses[half - 1]:.4f}, step {steps} "
         f"{losses[-1]:.4f}")
     q = max(steps // 4, 1)
     first, last = float(np.mean(losses[:q])), float(np.mean(losses[-q:]))
     m_first, m_last = float(np.mean(makespans[:q])), float(np.mean(makespans[-q:]))
-    say(f"[train] splits {[s.tolist() for s in splits]}; mean loss first quarter {first:.4f}, last "
+    say(f"[{tag}] splits {[s.tolist() for s in splits]}; mean loss first quarter {first:.4f}, last "
         f"{last:.4f}; mean makespan first quarter {m_first:.3f}, last {m_last:.3f}")
-    say(f"[train] launches on the main path: {launches}")
+    say(f"[{tag}] launches on the main path: {launches}")
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"[train] a loss is not finite: {losses}")
+        raise AssertionError(f"[{tag}] a loss is not finite: {losses}")
     if not last < first:
-        raise AssertionError(f"[train] the last quarter's loss {last} is not below the first's {first}")
+        raise AssertionError(f"[{tag}] the last quarter's loss {last} is not below the first's {first}")
     if not splits:
-        raise AssertionError("[train] the partitioner proposed no split")
+        raise AssertionError(f"[{tag}] the partitioner proposed no split")
     if not m_last < m_first:
-        raise AssertionError(f"[train] the last quarter's makespan {m_last} is not below {m_first}")
+        raise AssertionError(f"[{tag}] the last quarter's makespan {m_last} is not below {m_first}")
     k1_shape = (TRAIN_WORKERS, trainer.partitioner.config.grid_size, trainer._ring.capacity)
 
     batch = {key: torch.as_tensor(v[0]).to(device) for key, v in next(trainer.data).items()}
@@ -2833,7 +3014,7 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
             torch.cuda.reset_peak_memory_stats()
         times = [clock(device, lambda: vg(trainer.params, batch))[1] for _ in range(3)]
         extra = (torch.cuda.max_memory_allocated() - base) if on_card else 0
-        say(f"[train] one microbatch ({batch['tokens'].shape[0]} x {shape['seq_len']}) forward and "
+        say(f"[{tag}] one microbatch ({batch['tokens'].shape[0]} x {shape['seq_len']}) forward and "
             f"backward, remat {remat}: {statistics.median(times):.1f} ms (median of 3), peak "
             f"{extra / 2**30:.2f} GiB above the {base / 2**30 if on_card else 0:.2f} GiB held; "
             f"{count.n} PyTorch operations dispatched")
@@ -2844,13 +3025,30 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
             _, wall = clock(device, lambda: trainer.train(1))
         kern = [e for e in prof.key_averages() if e.device_time_total > 0]
         busy = sum(e.device_time_total for e in kern) / 1e3
-        say(f"[train] a profiled step: {wall:.1f} ms on the host's clock, {busy:.1f} ms of kernels, "
+        say(f"[{tag}] a profiled step: {wall:.1f} ms on the host's clock, {busy:.1f} ms of kernels, "
             f"the card idle {100 * (1 - busy / wall):.1f} %; {sum(e.count for e in kern)} kernels")
         for e in sorted(kern, key=lambda e: -e.device_time_total)[:8]:
-            say(f"[train]   {e.key[:80]}: {e.count} x, {e.device_time_total / 1e3:.1f} ms")
+            say(f"[{tag}]   {e.key[:80]}: {e.count} x, {e.device_time_total / 1e3:.1f} ms")
+        for name in ("lru_scan_kernel", "lru_scan_bwd_kernel", "posterior_grid_fleet_kernel"):
+            own = [e for e in kern if name + "<" in e.key]  # the port's kernels, by entry
+            ms_own = sum(e.device_time_total for e in own) / 1e3
+            say(f"[{tag}] {name}: {sum(e.count for e in own)} x, {ms_own:.2f} ms, "
+                f"{100 * ms_own / busy:.2f} % of the kernels' time")
     del trainer
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     return launches, k1_shape
+
+
+def phase_train_hybrid(device="cuda", layers=HYBRID_LAYERS, steps=HYBRID_STEPS, shape=None):
+    """Phase 19: phase 17's ``Trainer`` on recurrentgemma-2b at full width,
+    the registry's config cut to ``layers`` for this call only.  Returns
+    (launches, K1's shape, the cut config)."""
+    from repro_torch.configs import get_arch
+
+    cut = dataclasses.replace(get_arch(HYBRID_ARCH), num_layers=layers)
+    launches, k1_shape = phase_train(device, cfg=cut, steps=steps, shape=shape,
+                                     run_kw=HYBRID_RUN, tag="train-hybrid")
+    return launches, k1_shape, cut
 
 
 def phase_train_cli(device=None, full=True):
@@ -2946,13 +3144,14 @@ def main() -> int:
     phase_build()
     import serve_partitioned_torch as example
     import torch
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels import build as kbuild
     from repro_torch.models.transformer import layer_kinds
 
     errs = dict(posterior_grid_fleet=phase_k1_parity(), decode_attention=phase_k2_parity(),
-                lru_scan=phase_k3_parity())
+                lru_scan=phase_k3_parity(), lru_scan_bwd=phase_k3_backward_parity())
     timing = dict(posterior_grid_fleet=phase_k1_timing(), decode_attention=phase_k2_timing(),
-                  lru_scan=phase_k3_timing())
+                  lru_scan=phase_k3_timing(), lru_scan_bwd=phase_k3_backward_timing())
     phase_quickstart()
     fleet_launches, gap = phase_fleet()
     expected = CYCLES * SWEEPS
@@ -2963,6 +3162,7 @@ def main() -> int:
     serve_launches = phase_serve()
     kinds = layer_kinds(get_arch(SERVE_ARCH))
     want = dict(lru_scan=kinds.count("rglru"),  # once per RG-LRU layer of the prefill
+                lru_scan_bwd=0,  # serving runs no backward
                 decode_attention=kinds.count("localattn") * (SERVE_GEN - 1))  # per decode step
     for name, n in want.items():
         if serve_launches.get(name) != n:
@@ -2982,7 +3182,8 @@ def main() -> int:
     tinyllama_launches = phase_serve_family("tinyllama", TINYLLAMA, TINYLLAMA_ARGV)
     tiny_cfg = get_arch(TINYLLAMA[0])
     want = attention_layers(tiny_cfg) * (TINYLLAMA[3] - 1)  # 22 x 15 = 330 at (8, 64)
-    if tinyllama_launches != dict(posterior_grid_fleet=0, decode_attention=want, lru_scan=0):
+    if tinyllama_launches != dict(posterior_grid_fleet=0, decode_attention=want, lru_scan=0,
+                                  lru_scan_bwd=0):
         raise AssertionError(f"[tinyllama] launches {tinyllama_launches}, not {want} of K2")
     phase_teacher_forcing_families()
     phase_teacher_forcing_xlstm()
@@ -2995,13 +3196,13 @@ def main() -> int:
     del service_runs
     # 20 sweeps a tick of two loops, CKPT_TICKS each, then two observes
     if ckpt_launches != dict(posterior_grid_fleet=SWEEPS * (2 * CKPT_TICKS + 2), decode_attention=0,
-                             lru_scan=0):
+                             lru_scan=0, lru_scan_bwd=0):
         raise AssertionError(f"[checkpoint] launches {ckpt_launches}, not "
                              f"{SWEEPS * (2 * CKPT_TICKS + 2)} of K1")
     part_launches, part_errs = phase_partitioned("partitioned", PART_ARGV, smoke=True)
     vlm_launches, vlm_errs = phase_partitioned("partitioned-vlm", PART_VLM_ARGV)
     for name in errs:
-        errs[name] = max(errs[name], part_errs[name], vlm_errs[name])
+        errs[name] = max(errs[name], part_errs.get(name, 0.0), vlm_errs.get(name, 0.0))
     dag_launches, dag_err = phase_dag()
     errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], dag_err)
     if dag_launches.get("posterior_grid_fleet") != SWEEPS * CYCLES:  # 20 per observe_dag
@@ -3011,7 +3212,7 @@ def main() -> int:
     want = dict(posterior_grid_fleet=example_out["config"].sched.n_iters
                 * example_out["counters"]["drains"],
                 decode_attention=attention_layers(example_cfg) * example.DECODE_STEPS * served,
-                lru_scan=0)
+                lru_scan=0, lru_scan_bwd=0)
     if example_launches != want:
         raise AssertionError(f"[example] launches {example_launches}, not {want}")
     example_errs = phase_example_parity(example_out, example_cfg)
@@ -3019,25 +3220,47 @@ def main() -> int:
     for name, err in example_errs.items():
         errs[name] = max(errs[name], err)
     legacy_ctx, legacy_launches, legacy_gap = phase_legacy()
-    want = dict(posterior_grid_fleet=2 * CYCLES * SWEEPS, decode_attention=0, lru_scan=0)
+    want = dict(posterior_grid_fleet=2 * CYCLES * SWEEPS, decode_attention=0, lru_scan=0,
+                lru_scan_bwd=0)
     if legacy_launches != want:  # 20 sweeps an observe, 3 cycles, 2 partitioners
         raise AssertionError(f"[legacy] launches {legacy_launches}, not {want}")
     if legacy_gap < 0.8:
         raise AssertionError(f"[legacy] oracle gap recovered {100 * legacy_gap:.1f} % < 80 %")
     fault_launches = phase_fault_tolerance(legacy_ctx)
     del legacy_ctx
-    if fault_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0):
+    if fault_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0,
+                              lru_scan_bwd=0):
         raise AssertionError(f"[fault] launches {fault_launches}, not {SWEEPS} of K1")
     phase_compression()
+    kbuild.reset_launch_counts()
     phase_train_parity()
+    parity_launches = kbuild.launch_counts()
+    # reduced recurrentgemma: its RG-LRU layers x 4 microbatches x 3 steps, K3
+    # twice (the forward and remat's recompute) and its backward once
+    n = layer_kinds(reduced(get_arch(HYBRID_ARCH))).count("rglru") * 4 * 3
+    want = dict(posterior_grid_fleet=0, decode_attention=0, lru_scan=2 * n, lru_scan_bwd=n)
+    if parity_launches != want:
+        raise AssertionError(f"[train-parity] launches {parity_launches}, not {want}")
+    say(f"[train-parity] launches: {parity_launches}")
     train_launches, train_k1 = phase_train()
     drains = TRAIN_STEPS // TRAIN_RUN["partitioner_refit_every"]
-    if train_launches != dict(posterior_grid_fleet=SWEEPS * drains, decode_attention=0, lru_scan=0):
+    if train_launches != dict(posterior_grid_fleet=SWEEPS * drains, decode_attention=0, lru_scan=0,
+                              lru_scan_bwd=0):
         raise AssertionError(f"[train] launches {train_launches}, not {SWEEPS} x {drains} of K1")
     cli_launches = phase_train_cli()
-    if cli_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0):
+    if cli_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0,
+                            lru_scan_bwd=0):
         raise AssertionError(f"[train-cli] launches {cli_launches}, not {SWEEPS} of K1 (one drain)")
     errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(train_k1))
+    hybrid_launches, hybrid_k1, hybrid_cfg = phase_train_hybrid()
+    # a step: the cut's RG-LRU layers x 8 microbatches, K3 twice (the forward
+    # and remat's recompute), its backward once; K1 20 a drain
+    n = layer_kinds(hybrid_cfg).count("rglru") * TRAIN_MB * HYBRID_STEPS
+    want = dict(posterior_grid_fleet=SWEEPS * HYBRID_STEPS // HYBRID_RUN["partitioner_refit_every"],
+                decode_attention=0, lru_scan=2 * n, lru_scan_bwd=n)
+    if hybrid_launches != want:
+        raise AssertionError(f"[train-hybrid] launches {hybrid_launches}, not {want}")
+    errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(hybrid_k1))
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
                    serve_whisper=whisper_launches, serve_internvl2=internvl_launches,
@@ -3047,11 +3270,19 @@ def main() -> int:
                    dag=dag_launches, serve_tinyllama=tinyllama_launches,
                    example_partitioned=example_launches, checkpoint=ckpt_launches,
                    legacy=legacy_launches, fault_tolerance=fault_launches,
-                   train=train_launches, train_cli=cli_launches)
+                   train_parity=parity_launches, train=train_launches, train_cli=cli_launches,
+                   train_hybrid=hybrid_launches)
+    stray = {p: c["lru_scan_bwd"] for p, c in by_path.items()
+             if c.get("lru_scan_bwd") and p not in ("train_parity", "train_hybrid")}
+    if stray:
+        raise AssertionError(f"K3's backward launched off the training paths: {stray}")
     kernels = [
         ("posterior_grid_fleet", "posterior_grid.cu", "src/repro/kernels/posterior_grid.py:108"),
         ("decode_attention", "decode_attention.cu", "src/repro/kernels/decode_attention.py:81"),
         ("lru_scan", "lru_scan.cu", "src/repro/kernels/lru_scan.py:52"),
+        # the TPU kernel has no backward: the reference differentiates its scan
+        ("lru_scan_bwd", "lru_scan.cu",
+         "jax.grad of lax.associative_scan, src/repro/models/recurrent.py:344"),
     ]
     path_launches = lambda name: {p: c.get(name, 0) for p, c in by_path.items() if c.get(name)}
     say(json.dumps({"kernels": [dict(

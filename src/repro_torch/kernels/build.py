@@ -87,7 +87,9 @@ def ptxas_report(name: str) -> str:
 
 
 class CudaKernel:
-    """One C entry point of a ``csrc/`` source, built at first use."""
+    """One C entry point of a ``csrc/`` source, built at first use.  A source
+    may have several entry points, each its own instance with its own
+    launch count."""
 
     def __init__(self, name: str, source: str, argtypes: Sequence):
         self.name = name
@@ -117,10 +119,14 @@ class CudaKernel:
 
 
 def build_all() -> None:
-    """Build every registered kernel, one ``nvcc`` per source, all at once."""
-    with ThreadPoolExecutor(max_workers=max(len(_REGISTRY), 1)) as pool:
-        for future in [pool.submit(k.build) for k in _REGISTRY.values()]:
+    """Build every registered kernel, one ``nvcc`` per source, all at once;
+    the other entry points of a source then load its library."""
+    by_source = {k.source: k for k in _REGISTRY.values()}
+    with ThreadPoolExecutor(max_workers=max(len(by_source), 1)) as pool:
+        for future in [pool.submit(k.build) for k in by_source.values()]:
             future.result()
+    for k in _REGISTRY.values():
+        k.build()
 
 
 def launch_counts() -> Dict[str, int]:

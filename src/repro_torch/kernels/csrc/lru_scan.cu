@@ -52,6 +52,28 @@
 // launch, so a CUDA graph that captures a call replays it correctly.  The
 // tile is fixed here; the Python wrapper (kernels/lru_scan.py, scan_layout)
 // sizes the workspace and passes the tile it assumed, which must be this.
+//
+// The backward (entry point lru_scan_bwd).  The TPU kernel has none: the
+// reference's model stack scans with lax.associative_scan and differentiates
+// it with jax.grad (src/repro/models/recurrent.py:344).  The port runs K3 in
+// that place, so it needs one.  With upstream gradient dy,
+//
+//   g_t = dy_t + a_{t+1} g_{t+1}  (g_{T-1} = dy_{T-1}),
+//   db_t = g_t,  da_t = g_t h_{t-1}  (h_{-1} = h0),  dh0 = a_0 g_0,
+//
+// a linear recurrence run in reverse time with a shifted by one step.  It
+// is the forward's scan walking time backwards: tiles are numbered so that
+// the LAST chunk comes first (id = (n_chunks - 1 - chunk) * B * ceil(R / W)
+// + ...), so a block again waits only on a tile a running block holds; a
+// block stages a_{t+1} and dy of its tile by TMA (or plain loads), walks it
+// backwards from a zero state for its decay and local state, takes the
+// successor chunk's inclusive g (its first row's) and publishes its own in
+// the carry word of chunk - 1, then walks it again writing db = g and
+// da = g h_{t-1}, h_{t-1} read from the saved forward output h (at a chunk's
+// first row the previous chunk's last row, at t = 0 h0).  g is float32 in
+// both types.  It reads a, dy and h once and writes da and db: 5/3 of the
+// forward's bytes.  dh0 is one elementwise product on (B, R), left to the
+// wrapper.  The workspace is the forward's, laid out alike.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -197,6 +219,127 @@ void launch(const void* a, const void* b, const float* h0, void* out, int* count
       carries, batch, t_n, r_n, bulk);
 }
 
+// The backward: one block of kWidth threads per tile, the last chunk first.
+// a_s[j] holds a at t0 + 1 + j (0 past the sequence's end), dy_s[j] dy at
+// t0 + j; h is read from device memory in the second walk.
+template <typename T>
+__global__ void __launch_bounds__(kWidth)
+lru_scan_bwd_kernel(const T* __restrict__ a, const T* __restrict__ dy, const T* __restrict__ h,
+                    const float* __restrict__ h0, T* __restrict__ da, T* __restrict__ db,
+                    int* __restrict__ counter, unsigned long long* __restrict__ carries,
+                    int batch, int t_n, int r_n, int bulk) {
+  __shared__ __align__(16) T a_s[kChunk][kWidth];
+  __shared__ __align__(16) T dy_s[kChunk][kWidth];
+  __shared__ uint64_t bar;
+  const int lane = threadIdx.x;
+
+  // 1. The tile, in the order blocks start: chunks from the last.
+  int tile = 0;
+  if (lane == 0) tile = atomicAdd(counter, 1);
+  tile = __shfl_sync(0xffffffffu, tile, 0);
+  const int n_chunks = (t_n + kChunk - 1) / kChunk;
+  const int n_rtiles = (r_n + kWidth - 1) / kWidth;
+  const int per_chunk = batch * n_rtiles;
+  const int k = tile / per_chunk;  // chunks from the end
+  const int c = n_chunks - 1 - k;
+  const int bi = (tile - k * per_chunk) / n_rtiles;
+  const int r0 = (tile - k * per_chunk - bi * n_rtiles) * kWidth;
+  const int t0 = c * kChunk;
+  const int steps = min(kChunk, t_n - t0);
+  const int n_next = t0 + steps < t_n ? steps : steps - 1;  // rows of a_{t+1} inside T
+  const size_t row0 = (static_cast<size_t>(bi) * t_n + t0) * r_n + r0;  // (b, t0, r0)
+
+  // 2. dy at t0.., a at t0 + 1.., every row in flight at once.
+  if (bulk) {
+    const uint32_t row_bytes = static_cast<uint32_t>(min(kWidth, r_n - r0) * sizeof(T));
+    if (lane == 0) {
+      mbar_init(&bar);
+      mbar_fence_init();
+      mbar_arrive_expect(&bar, static_cast<uint32_t>(steps + n_next) * row_bytes);
+    }
+    __syncwarp();
+    for (int j = lane; j < steps; j += kWidth) {
+      const size_t off = row0 + static_cast<size_t>(j) * r_n;
+      bulk_copy(&dy_s[j][0], dy + off, row_bytes, &bar);
+      if (j < n_next) bulk_copy(&a_s[j][0], a + off + r_n, row_bytes, &bar);
+    }
+    mbar_wait(&bar, 0);
+  }
+  if (r0 + lane >= r_n) return;  // past the last channel tile's edge
+  const size_t first = row0 + lane;
+  if (!bulk && n_next == kChunk) {  // each thread its own column, 32 rows in flight
+#pragma unroll 32
+    for (int j = 0; j < kChunk; ++j) {
+      dy_s[j][lane] = dy[first + static_cast<size_t>(j) * r_n];
+      a_s[j][lane] = a[first + static_cast<size_t>(j + 1) * r_n];
+    }
+  } else if (!bulk) {  // a chunk at the sequence's end
+    for (int j = 0; j < steps; ++j) {
+      dy_s[j][lane] = dy[first + static_cast<size_t>(j) * r_n];
+      if (j < n_next) a_s[j][lane] = a[first + static_cast<size_t>(j + 1) * r_n];
+    }
+  }
+  if (n_next < steps) store(&a_s[steps - 1][lane], 0.f);  // g_T = 0 has no a_T
+
+  // 3. The chunk's own decay and first-row g, from a zero state at its end.
+  float decay = 1.f, local = 0.f;
+#pragma unroll 8
+  for (int j = steps - 1; j >= 0; --j) {
+    const float aj = to_f32(a_s[j][lane]);
+    local = fmaf(aj, local, to_f32(dy_s[j][lane]));
+    decay *= aj;
+  }
+
+  // 4. The inclusive g after the chunk (chunk + 1's first row; 0 after the
+  // last), then this chunk's, published for chunk - 1 in word c - 1.
+  const size_t chan = static_cast<size_t>(bi) * r_n + r0 + lane;  // (b, r)
+  const size_t plane = static_cast<size_t>(batch) * r_n;
+  float g = 0.f;
+  if (c < n_chunks - 1) {
+    const unsigned long long* p = carries + static_cast<size_t>(c) * plane + chan;
+    const uint64_t start = global_ns();
+    unsigned long long v;
+    while (!((v = ld_word(p)) & kReady)) {
+      if (global_ns() - start > kWatchdogNs) __trap();
+    }
+    g = __uint_as_float(static_cast<unsigned>(v));
+  }
+  if (c > 0) st_word(carries + static_cast<size_t>(c - 1) * plane + chan, fmaf(decay, g, local));
+
+  // 5. The chunk's g from the successor's, backwards: db = g, da = g h_{t-1}.
+  const T* hp = h + first;
+  T* dap = da + first;
+  T* dbp = db + first;
+#pragma unroll 8
+  for (int j = steps - 1; j >= 0; --j) {
+    g = fmaf(to_f32(a_s[j][lane]), g, to_f32(dy_s[j][lane]));
+    const float h_prev =
+        t0 + j > 0 ? to_f32(hp[(static_cast<long long>(j) - 1) * r_n]) : h0[chan];
+    store(dbp + static_cast<size_t>(j) * r_n, g);
+    store(dap + static_cast<size_t>(j) * r_n, g * h_prev);
+  }
+}
+
+template <typename T>
+void launch_bwd(const void* a, const void* dy, const void* h, const float* h0, void* da,
+                void* db, int* counter, unsigned long long* carries, int batch, int t_n,
+                int r_n, long long n_tiles, cudaStream_t st) {
+  const int bulk = (r_n * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  lru_scan_bwd_kernel<T><<<static_cast<unsigned>(n_tiles), kWidth, 0, st>>>(
+      static_cast<const T*>(a), static_cast<const T*>(dy), static_cast<const T*>(h), h0,
+      static_cast<T*>(da), static_cast<T*>(db), counter, carries, batch, t_n, r_n, bulk);
+}
+
+// The tile and workspace checks both entry points make; false refuses.
+bool layout_ok(int batch, int t_n, int r_n, int chunk, int width, long long workspace_bytes,
+               long long* n_tiles) {
+  const long long n_chunks = (t_n + kChunk - 1) / kChunk;
+  *n_tiles = n_chunks * batch * ((r_n + kWidth - 1) / kWidth);
+  return chunk == kChunk && width == kWidth &&
+         workspace_bytes == kCounterBytes + 8LL * (n_chunks - 1) * batch * r_n;
+}
+
 }  // namespace
 
 // a, b, out (B, T, R), all bfloat16 (is_bf16 = 1) or all float32 (0); h0
@@ -211,10 +354,8 @@ extern "C" int lru_scan(const void* a, const void* b, const float* h0, void* out
                         void* workspace, long long workspace_bytes, int batch, int t_n,
                         int r_n, int chunk, int width, int is_bf16, void* stream) {
   if (batch <= 0 || t_n <= 0 || r_n <= 0) return static_cast<int>(cudaSuccess);
-  const long long n_chunks = (t_n + kChunk - 1) / kChunk;
-  const long long n_tiles = n_chunks * batch * ((r_n + kWidth - 1) / kWidth);
-  if (chunk != kChunk || width != kWidth ||
-      workspace_bytes != kCounterBytes + 8LL * (n_chunks - 1) * batch * r_n)
+  long long n_tiles;
+  if (!layout_ok(batch, t_n, r_n, chunk, width, workspace_bytes, &n_tiles))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
@@ -226,5 +367,31 @@ extern "C" int lru_scan(const void* a, const void* b, const float* h0, void* out
     launch<__nv_bfloat16>(a, b, h0, out, counter, carries, batch, t_n, r_n, n_tiles, st);
   else
     launch<float>(a, b, h0, out, counter, carries, batch, t_n, r_n, n_tiles, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: a, dy, h, da, db (B, T, R), all bfloat16 (is_bf16 = 1) or all
+// float32 (0); h0 (B, R) float32; h the forward's output on a, b, h0.  Writes
+// da = dL/da and db = dL/db for dL/dh = dy; the tile and workspace as
+// lru_scan's, checked alike.
+extern "C" int lru_scan_bwd(const void* a, const void* dy, const void* h, const float* h0,
+                            void* da, void* db, void* workspace, long long workspace_bytes,
+                            int batch, int t_n, int r_n, int chunk, int width, int is_bf16,
+                            void* stream) {
+  if (batch <= 0 || t_n <= 0 || r_n <= 0) return static_cast<int>(cudaSuccess);
+  long long n_tiles;
+  if (!layout_ok(batch, t_n, r_n, chunk, width, workspace_bytes, &n_tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned char* ws = static_cast<unsigned char*>(workspace);
+  int* counter = reinterpret_cast<int*>(ws);
+  auto* carries = reinterpret_cast<unsigned long long*>(ws + kCounterBytes);
+  const cudaError_t err = cudaMemsetAsync(ws, 0, static_cast<size_t>(workspace_bytes), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (is_bf16)
+    launch_bwd<__nv_bfloat16>(a, dy, h, h0, da, db, counter, carries, batch, t_n, r_n, n_tiles,
+                              st);
+  else
+    launch_bwd<float>(a, dy, h, h0, da, db, counter, carries, batch, t_n, r_n, n_tiles, st);
   return static_cast<int>(cudaGetLastError());
 }

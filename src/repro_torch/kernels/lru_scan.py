@@ -7,6 +7,13 @@ goes to the hand-written kernel (``csrc/lru_scan.cu``), which raises if it
 cannot be built or launched; a CPU tensor goes to the plain PyTorch version
 ``lru_scan_plain``, which the tests and the on-card comparison also use.
 
+Under autograd ``lru_scan`` goes through ``LruScan``, whose backward is the
+reverse-time scan g_t = dy_t + a_{t+1} g_{t+1} (db = g, da = g h_{t-1},
+dh0 = a_0 g_0): the kernel's second entry point ``lru_scan_bwd`` on a CUDA
+tensor, ``lru_scan_backward_plain`` on a CPU tensor.  The TPU kernel has no
+backward; the reference differentiates ``lax.associative_scan`` with
+``jax.grad`` where the port runs K3.
+
 The kernel is a single-pass chunked scan with a chained carry: a block takes
 one tile of ``CHUNK`` time steps by ``WIDTH`` channels of one sequence, and
 each chunk waits for the state its predecessor publishes.  The tile is fixed
@@ -28,6 +35,11 @@ _KERNEL = CudaKernel(
     "lru_scan",
     "lru_scan.cu",
     [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+_BWD_KERNEL = CudaKernel(
+    "lru_scan_bwd",
+    "lru_scan.cu",
+    [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 
 # The kernel's tile (kChunk, kWidth in csrc/lru_scan.cu), the fastest of
@@ -67,22 +79,44 @@ def lru_scan_plain(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     return x.to(a.dtype)
 
 
+def lru_scan_backward_plain(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor):
+    """Plain PyTorch version of K3's backward: for h = lru_scan(a, b, h0) and
+    dL/dh = dy, returns (da, db, dh0).  g_t = dy_t + a_{t+1} g_{t+1} is
+    ``lru_scan_plain`` on the reversed sequence with a shifted by one step,
+    in float32; db = g and da = g h_{t-1} (h_{-1} = h0) in a's dtype, dh0 =
+    a_0 g_0 in h0's."""
+    a32 = a.float()
+    a_next = torch.cat([a32[:, 1:], torch.zeros_like(a32[:, :1])], dim=1)  # g_T = 0
+    g = lru_scan_plain(a_next.flip(1), dy.float().flip(1), torch.zeros_like(a32[:, 0])).flip(1)
+    h_prev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], dim=1)
+    return (g * h_prev).to(a.dtype), g.to(a.dtype), (a32[:, 0] * g[:, 0]).to(h0.dtype)
+
+
+def _check(what: str, a: Tensor, others, h0: Tensor) -> None:
+    """The launchers' refusals: one CUDA device; a and ``others`` (B, T, R)
+    all float32 or all bfloat16; h0 (B, R)."""
+    if not all(x.is_cuda and x.device == a.device for x in (a, *others, h0)):
+        raise ValueError(f"{what} takes tensors on one CUDA device")
+    if a.dtype not in (torch.float32, torch.bfloat16) or any(x.dtype != a.dtype for x in others):
+        raise ValueError(f"{what}: dtypes {a.dtype}, {[x.dtype for x in others]}: all float32 or "
+                         "all bfloat16")
+    if a.dim() != 3 or any(x.shape != a.shape for x in others) or \
+            h0.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"{what}: shapes {tuple(a.shape)}, {[tuple(x.shape) for x in others]}, "
+                         f"h0 {tuple(h0.shape)}")
+
+
 def lru_scan_cuda(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     """Launch K3 on the current stream: a, b (B, T, R) both float32 or both
     bfloat16, h0 (B, R), on one CUDA device.  Returns (B, T, R) in a's
-    dtype.  The kernel has no backward yet (ROADMAP item 12d): under autograd
-    with an input that requires a gradient it raises, as its output would
-    carry none and the gradients of a, b and h0 would silently be lost."""
+    dtype.  This is the raw launcher, with no gradient: under autograd with
+    an input that requires one it raises, as its output would carry none and
+    the gradients of a, b and h0 would silently be lost; ``lru_scan`` takes
+    such inputs through ``LruScan``."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):
-        raise NotImplementedError(
-            "lru_scan_cuda has no backward yet (ROADMAP item 12d, K3's reverse-time scan): "
-            "the hybrid family cannot train on the card; run it under torch.no_grad()")
-    if not all(x.is_cuda and x.device == a.device for x in (a, b, h0)):
-        raise ValueError("lru_scan_cuda takes tensors on one CUDA device")
-    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
-        raise ValueError(f"dtypes a {a.dtype}, b {b.dtype}: both float32 or both bfloat16")
-    if a.dim() != 3 or b.shape != a.shape or h0.shape != (a.shape[0], a.shape[2]):
-        raise ValueError(f"shapes: a {tuple(a.shape)}, b {tuple(b.shape)}, h0 {tuple(h0.shape)}")
+        raise RuntimeError("lru_scan_cuda is the raw launcher and carries no gradient: call "
+                           "lru_scan, which differentiates K3 through LruScan")
+    _check("lru_scan_cuda", a, (b,), h0)
     bsz, t, r = a.shape
     layout = scan_layout(bsz, t, r)
     a, b = a.contiguous(), b.contiguous()
@@ -99,12 +133,62 @@ def lru_scan_cuda(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     return out
 
 
+def lru_scan_bwd_cuda(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor):
+    """Launch K3's backward on the current stream: a, h (the forward's
+    output) and dy (B, T, R), all float32 or all bfloat16, h0 (B, R), on one
+    CUDA device.  Returns (da, db) in a's dtype; dh0 = a_0 db_0 is the
+    caller's (``LruScan.backward``)."""
+    _check("lru_scan_bwd_cuda", a, (h, dy), h0)
+    bsz, t, r = a.shape
+    layout = scan_layout(bsz, t, r)
+    a, h, dy = a.contiguous(), h.contiguous(), dy.contiguous()
+    h0 = h0.to(torch.float32).contiguous()
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    workspace = torch.empty(layout.workspace_bytes, dtype=torch.uint8, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    with torch.cuda.device(a.device):
+        _BWD_KERNEL.launch(
+            a.data_ptr(), dy.data_ptr(), h.data_ptr(), h0.data_ptr(), da.data_ptr(),
+            db.data_ptr(), workspace.data_ptr(), layout.workspace_bytes, bsz, t, r, CHUNK, WIDTH,
+            int(a.dtype == torch.bfloat16), stream,
+        )
+    return da, db
+
+
+class LruScan(torch.autograd.Function):
+    """K3 with its backward.  The forward runs the kernel on a CUDA tensor
+    and ``lru_scan_plain`` on a CPU tensor, and saves a, its output h and h0
+    (not b); the backward runs ``lru_scan_bwd`` or
+    ``lru_scan_backward_plain`` alike.  Under
+    ``torch.utils.checkpoint(use_reentrant=False)`` the forward runs again
+    in the recompute, so a layer launches K3 twice and its backward once."""
+
+    @staticmethod
+    def forward(ctx, a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
+        h = lru_scan_cuda(a, b, h0) if a.is_cuda else lru_scan_plain(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dy: Tensor):
+        a, h, h0 = ctx.saved_tensors
+        if a.is_cuda:
+            da, db = lru_scan_bwd_cuda(a, h, h0, dy.to(a.dtype))
+            dh0 = (a[:, 0].float() * db[:, 0].float()).to(h0.dtype)
+        else:
+            da, db, dh0 = lru_scan_backward_plain(a, h, h0, dy)
+        return da, db, dh0 if ctx.needs_input_grad[2] else None
+
+
 def lru_scan(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     """h_t = a_t h_{t-1} + b_t along T, h0 folded in.  Same signature as
     ``lru_scan_pallas``.  CUDA tensors run the kernel; CPU tensors run
-    ``lru_scan_plain``."""
+    ``lru_scan_plain``; under autograd with an input that requires a
+    gradient both go through ``LruScan``."""
+    if a.device.type != "cpu" and not a.is_cuda:
+        raise ValueError(f"lru_scan: no kernel for device {a.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):
+        return LruScan.apply(a, b, h0)
     if a.device.type == "cpu":
         return lru_scan_plain(a, b, h0)
-    if not a.is_cuda:
-        raise ValueError(f"lru_scan: no kernel for device {a.device}")
     return lru_scan_cuda(a, b, h0)

@@ -67,7 +67,9 @@ class Trainer:
         config whose objective is the default (mean) still honors the run's
         ``partitioner_risk_aversion``; any non-default objective wins as-is.
         ``mesh_info`` must be None: the sharded model stack is ROADMAP item
-        10.  The moments are kept in ``run.optimizer_dtype``."""
+        10.  The moments are float32 whatever ``run.optimizer_dtype`` says, as
+        the reference's trainer keeps them; that setting is read by the dry
+        run alone (ROADMAP item 13)."""
         if mesh_info is not None:
             raise NotImplementedError("mesh_info: the sharded model stack is ROADMAP item 10")
         self.device = resolve_device(device)
@@ -78,7 +80,7 @@ class Trainer:
         self.m = num_microbatches or max(run.shape.global_batch // 8, 1)
 
         self.params = model_zoo.init_model_params(self.cfg, seed=run.seed, device=self.device)
-        self.opt_state = adamw.init(self.params, dtype=ts.DTYPES[run.optimizer_dtype])
+        self.opt_state = adamw.init(self.params)
         self.step = 0
 
         self.ctx = ApplyCtx(mode="train", remat=run.remat)

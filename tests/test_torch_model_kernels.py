@@ -262,6 +262,12 @@ def test_every_parity_shape_and_config_is_instantiated():
     assert compiled == INSTANTIATED
 
 
+def _scan_grads(fn, a, x, h0, dy):
+    """(da, db, dh0) of ``fn(a, x, h0)`` for the upstream gradient dy."""
+    leaves = [y.detach().requires_grad_() for y in (a, x, h0)]
+    return torch.autograd.grad(fn(*leaves), leaves, dy)
+
+
 def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
@@ -324,6 +330,41 @@ def test_lru_scan_kernel_matches_plain_on_card(dtype):
         torch.cuda.synchronize()
         assert kernels.launch_counts()["lru_scan"] == before + 1
         _close(got.cpu(), lru_scan_plain(a, x, h0).cpu(), 1e-5 if dtype == "float32" else 4e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lru_scan_backward_kernel_matches_plain_on_card(dtype):
+    """K3's backward (``lru_scan_bwd`` through ``LruScan``) against
+    ``torch.autograd.grad`` through ``lru_scan_plain`` with the same dy, at
+    the forward's cases, h0 != 0 and requiring a gradient, one launch of
+    each entry point a call.  Each gradient is held within 1e-5 (bfloat16:
+    4e-2) of its largest entry: the kernel sums g sequentially in float32
+    and the plain version's autograd in a log-depth order, and with decays
+    near 1 the gradient of a entry near 0 is a difference of terms ~100
+    (measured on the CPU: 3e-7 of the largest entry in float32)."""
+    _needs_card()
+    tdt = DTYPES[dtype][1]
+    tol = 1e-5 if dtype == "float32" else 4e-2
+    shapes = [(*case[:3], False) for case in SCAN_CASES] + [(*SCAN_PATH, False)]
+    shapes += [(*shape, False) for shape in _ragged_scans()]
+    shapes += [(*SCAN_PATH, True), (4, 4097, 2560, True), (2, 513, 300, True)]
+    for b, t, r, near_one in shapes:
+        inputs = _scan_inputs(b, t, r, seed=t + 1, near_one=near_one)
+        a, x, h0 = (torch.as_tensor(y, device="cuda").to(tdt) for y in inputs)
+        dy = torch.randn((b, t, r), generator=torch.Generator("cuda").manual_seed(t),
+                         device="cuda").to(tdt)
+        want = _scan_grads(lru_scan_plain, a, x, h0, dy)
+        before = kernels.launch_counts()
+        got = _scan_grads(ops.lru_scan, a, x, h0, dy)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert (after["lru_scan"] - before["lru_scan"],
+                after["lru_scan_bwd"] - before["lru_scan_bwd"]) == (1, 1)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= tol * float(w.float().abs().max()), ((b, t, r), near_one, err)
 
 
 @pytest.mark.cuda

@@ -44,9 +44,10 @@ from test_torch_models import draw_params, extra_inputs
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-5
 # One family per case: dense, MoE at capacity factor 0.5 (48 (token, slot)
-# pairs of 24 tokens for 4 x 6 slots: at least half dropped), hybrid (the
-# CPU's differentiable scan; K3 has no backward on the card yet), encdec with
-# frames, vision with patches, ssm.
+# pairs of 24 tokens for 4 x 6 slots: at least half dropped), hybrid (its scan
+# through LruScan: lru_scan_plain forward and lru_scan_backward_plain on the
+# CPU, K3 and its backward on the card), encdec with frames, vision with
+# patches, ssm.
 FAMILIES = {"tinyllama-1.1b": {}, "granite-moe-3b-a800m": dict(capacity_factor=0.5),
             "recurrentgemma-2b": dict(local_window=4), "whisper-medium": {},
             "internvl2-1b": {}, "xlstm-1.3b": {}}
@@ -289,25 +290,37 @@ def test_three_train_steps_match_the_reference_jitted_step(compression):
 
 
 @pytest.mark.cuda
-def test_k3_refuses_a_gradient_on_the_card():
-    """The hybrid family's train step on the card: K3 has no backward yet
-    (ROADMAP item 12d), so the RG-LRU's scan raises rather than return an
-    output without a gradient; under no_grad (serving, teacher forcing) the
-    same forward runs K3."""
+def test_hybrid_microbatch_on_the_card_matches_the_cpu():
+    """The reduced hybrid family's microbatch on the card, its RG-LRU scans
+    through K3 and K3's backward (``LruScan``), against the CPU's
+    (``lru_scan_plain`` and ``lru_scan_backward_plain``) from the same numpy
+    weights, float32 with TF32 off: the loss at LOSS_RTOL, each gradient
+    leaf within GRAD_REL of its largest entry.  Under remat "full" each
+    RG-LRU layer launches K3 twice (the forward and its recompute) and the
+    backward once."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch import kernels
-    from repro_torch.models import model_zoo
+    from repro_torch.models.transformer import layer_kinds
 
-    _, tcfg, _ = model("recurrentgemma-2b")
-    params = model_zoo.init_model_params(tcfg, seed=0, device="cuda")
-    mb = {k: v.cuda() for k, v in both(batch(tcfg))[1].items()}
+    _, tcfg, tree = model("recurrentgemma-2b")
+    _, tb = both(batch(tcfg))
     ctx = tl.ApplyCtx(mode="train", remat="full")
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        tts.microbatch_value_and_grad(tcfg, ctx)(params, mb)
-    before = kernels.launch_counts()["lru_scan"]
-    with torch.no_grad():
-        loss, _ = tts.loss_fn(tcfg, params, mb, ctx)
+    (want_loss, _), want = tts.microbatch_value_and_grad(tcfg, ctx)(tparams(tree), tb)
+    before = kernels.launch_counts()
+    (loss, _), got = tts.microbatch_value_and_grad(tcfg, ctx)(
+        convert.model_params_from_jax(tree, "cuda"), {k: v.cuda() for k, v in tb.items()})
     torch.cuda.synchronize()
-    assert torch.isfinite(loss)
-    assert kernels.launch_counts()["lru_scan"] - before == 2  # its two RG-LRU layers
+    after = kernels.launch_counts()
+    n = layer_kinds(tcfg).count("rglru")
+    assert n == 2
+    assert after["lru_scan"] - before["lru_scan"] == 2 * n
+    assert after["lru_scan_bwd"] - before["lru_scan_bwd"] == n
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL)
+    assert len(leaves(got)) == len(leaves(want))
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.is_cuda and g.shape == w.shape
+        err = float((g.cpu() - w).abs().max())
+        assert err <= GRAD_REL * float(w.abs().max()) + 1e-8, (tuple(w.shape), err)

@@ -162,7 +162,7 @@ def test_straggler_soft_detection(tmp_path):
 # --- against the reference trainer ------------------------------------------
 
 
-def _reference_trainer(tmp_path, steps, m=4):
+def _reference_trainer(tmp_path, steps, m=4, **kw):
     from repro.configs import RunConfig as JRunConfig, get_arch as jget_arch, reduced as jreduced
     from repro.configs.base import ShapeConfig as JShapeConfig
     from repro.distributed.simulated_cluster import SimulatedCluster as JCluster
@@ -173,13 +173,13 @@ def _reference_trainer(tmp_path, steps, m=4):
         model=jreduced(jget_arch("smollm-135m")),
         shape=JShapeConfig("t", seq_len=32, global_batch=8, kind="train"),
         checkpoint_dir=str(tmp_path), total_steps=steps, warmup_steps=2, checkpoint_every=100,
-        partitioner_refit_every=6)
+        partitioner_refit_every=6, **kw)
     return JTrainer(run, cluster=JCluster([JSpec(5.0, 0.5), JSpec(7.0, 0.5)], seed=2),
                     num_microbatches=m)
 
 
-def _port_trainer(tmp_path, steps, m=4):
-    run = dataclasses.replace(_run_cfg(tmp_path, steps=steps), checkpoint_every=100)
+def _port_trainer(tmp_path, steps, m=4, **kw):
+    run = dataclasses.replace(_run_cfg(tmp_path, steps=steps, **kw), checkpoint_every=100)
     return trainer(run, SimulatedCluster([WorkerSpec(5.0, 0.5), WorkerSpec(7.0, 0.5)], seed=2), m)
 
 
@@ -203,22 +203,29 @@ def test_eight_steps_match_the_reference_trainer_from_the_same_state(tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-def test_a_reference_trainer_checkpoint_restores_into_the_port(tmp_path):
+@pytest.mark.parametrize("optimizer_dtype", ["float32", "bfloat16"])
+def test_a_reference_trainer_checkpoint_restores_into_the_port(tmp_path, optimizer_dtype):
     """A reference trainer's checkpoint after 2 steps restores by name into
     the port's ``Trainer``, skipping only the random-key leaves (the port's
     scheduler carries a generator where the reference carries keys): the
     model, the moments, the scheduler's beliefs, the telemetry ring and the
     data cursor bit for bit; then both train 2 more steps to the same
-    losses (rtol 1e-5, as above)."""
-    ref = _reference_trainer(tmp_path, 4)
+    losses (rtol 1e-5, as above).  Both trainers keep float32 moments
+    whatever ``optimizer_dtype`` says (read by the dry run alone), so at
+    "bfloat16" too no moment is skipped on its dtype."""
+    ref = _reference_trainer(tmp_path, 4, optimizer_dtype=optimizer_dtype)
     ref.train(2)
     ref.save()
     ref.ckpt.wait()
 
-    port = _port_trainer(tmp_path, 4)
+    port = _port_trainer(tmp_path, 4, optimizer_dtype=optimizer_dtype)
+    assert all(x.dtype == torch.float32
+               for x in leaves(port.opt_state.m) + leaves(port.opt_state.v))
     _, _, report = port.ckpt.restore_by_name(port._ckpt_tree())
     assert report["skipped"] == ["['sched'].generator"]
     assert port.try_restore() and port.step == 2
+    assert all(x.dtype == torch.float32
+               for x in leaves(port.opt_state.m) + leaves(port.opt_state.v))
     got = [leaves(t) for t in (port.params, port.opt_state.m, port.opt_state.v)]
     want = [jax.tree_util.tree_leaves(t) for t in (ref.params, ref.opt_state.m, ref.opt_state.v)]
     for g, w in zip(sum(got, []), sum(want, [])):
