@@ -214,9 +214,13 @@ result lines:
      peak memory, losses, splits, makespans; every loss finite, the last
      quarter's mean loss and makespan below the first's, a split proposed,
      40 K1 launches (20 an observe, 2 drains); one microbatch's forward and
-     backward under remat "none" and "full", ms, memory and operations
-     dispatched; one more step under ``torch.profiler``: its host ms, its
-     kernels' ms, the card's idle share, the top kernels;
+     backward under each remat setting ("none", "full", "dots", "outs"),
+     ms, memory and operations dispatched, the loss and every gradient of
+     the last three bitwise those of "none"; that microbatch tiled to 8 and
+     32 rows under "full", "dots" and "outs" (ms and memory; "none" would
+     not fit at 32), the last two bitwise "full"'s; one more step under
+     ``torch.profiler``: its host ms, its kernels' ms, the card's idle
+     share, the top kernels;
  18. ``repro_torch.launch.train.main`` on full-width smollm-135m (16 steps,
      then ``--resume --steps 8`` from step 16; 20 K1 launches), then
      tests/test_system.py's exact resume at this width on ``Trainer``
@@ -230,8 +234,25 @@ result lines:
      8 RG-LRU layers), 16 steps with a drain every 8: step ms, tokens/s,
      peak memory, the loss and makespan conditions, K3 2 x 8 x 8 = 128
      launches a step (the forward and remat's recompute) and its backward
-     64, K1 40; one microbatch under remat "none" and "full"; a profiled
-     step; then K1 against its plain version at the trainer's shape.
+     64, K1 40; one microbatch under each remat setting, bitwise "none"'s,
+     K3 launched once an RG-LRU layer under "none" and twice under the
+     others (the recompute), its backward once; a profiled step; then K1
+     against its plain version at the trainer's shape;
+ 20. ``examples/train_hetero_torch.py``'s ``main`` at its full width
+     (smollm-135m in float32, 8 x 64 tokens in 8 microbatches, four
+     simulated workers), its 300 steps cut to 36 (3 refits, 3
+     checkpoints): step ms (median and range after 2 warm-up steps),
+     tokens/s, peak memory; finite losses, the last decile's mean loss and
+     the last quarter's makespan below the first's, the slow worker the
+     least loaded in the last split; K1 20 a drain, no other kernel;
+     then K1 against its plain version at the trainer's (4, 256, 24);
+ 21. ``examples/elastic_failover_torch.py``'s ``main`` at its own settings
+     (reduced tinyllama-1.1b): its asserts, a straggler event for worker 1,
+     a fleet of 2, the resume at step 48, phase 5's observation counts; K1
+     20 a drain and 3 an observe of phase 5, no other kernel; then K1
+     against its plain version at every shape the example gave it (the
+     trainers' (3, 256, 16) and (2, 256, 16), phase 5's (8, 32, 8) and
+     (9, 32, 4)).
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -2843,6 +2864,9 @@ def phase_compression(device="cuda", cfg=None):
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_WARM = "tinyllama-1.1b", 32, 2
 TRAIN_RUN = dict(warmup_steps=3, partitioner_refit_every=16, grad_compression="int8_ef")
 TRAIN_SHAPE = dict(seq_len=512, global_batch=16)
+# phase 17's microbatch tiled to these rows (of 512 tokens) for the remat
+# settings' times where the card sets them
+REMAT_ROWS = (8, 32)
 TRAIN_MB, TRAIN_WORKERS = 8, 4
 TRAIN_DIR = ROOT / "build" / "train_ckpt"  # git-ignored; emptied first, removed after
 # The train step on the card against the CPU, float32, TF32 off, reduced
@@ -2917,15 +2941,19 @@ def phase_train_parity(device="cuda"):
 
 
 def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_MB,
-                run_kw=None, tag="train"):
+                run_kw=None, tag="train", remat_rows=REMAT_ROWS):
     """Phase 17 (and 19 with ``cfg``, ``steps``, ``run_kw`` and ``tag``):
     ``Trainer`` on full-width tinyllama-1.1b, one step a ``train(1)`` call
     timed on the host's clock (synchronised; the loss read every step, as
     the reference does); the loss and makespan conditions of
     tests/test_system.py::test_training_converges_and_rebalances; then one
-    microbatch's forward and backward under remat "none" and "full", and on
-    the card one more step under the profiler.  Returns (the launches of the
-    timed steps, the trainer's K1 shape (K, G, N))."""
+    microbatch's forward and backward under each remat setting, the loss
+    and gradients of "full", "dots" and "outs" bitwise those of "none"; on
+    the card the same microbatch tiled to each of ``remat_rows`` rows under
+    "full", "dots" and "outs", the last two bitwise "full"'s, and one more
+    step under the profiler.  Returns (the launches of
+    the timed steps, the trainer's K1 shape (K, G, N), one microbatch's
+    launches by remat)."""
     import shutil
 
     import numpy as np
@@ -2936,6 +2964,7 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
     from repro_torch.launch.train import simulated_fleet
     from repro_torch.models.layers import ApplyCtx
     from repro_torch.models.params import leaves
+    from repro_torch.models.transformer import REMATS
     from repro_torch.train.train_step import microbatch_value_and_grad
     from repro_torch.train.trainer import Trainer
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -3004,10 +3033,20 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
     k1_shape = (TRAIN_WORKERS, trainer.partitioner.config.grid_size, trainer._ring.capacity)
 
     batch = {key: torch.as_tensor(v[0]).to(device) for key, v in next(trainer.data).items()}
-    for remat in ("none", "full"):
+    remat_launches, plain_out = {}, None
+    for remat in REMATS:  # "none" first: the others' loss and gradients must be its bits
         vg = microbatch_value_and_grad(cfg, ApplyCtx(mode="train", remat=remat))
+        kernels.reset_launch_counts()
         with CountOps() as count:
-            vg(trainer.params, batch)  # warm
+            out = vg(trainer.params, batch)  # warm; its launches are the policy's
+        sync(device)
+        remat_launches[remat] = kernels.launch_counts()
+        if plain_out is None:
+            plain_out = out
+        else:
+            assert_bitwise(f"[{tag}] remat {remat}'s loss and gradients",
+                           [out[0][0]] + leaves(out[1]), [plain_out[0][0]] + leaves(plain_out[1]))
+        del out
         if on_card:
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
@@ -3015,9 +3054,40 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
         times = [clock(device, lambda: vg(trainer.params, batch))[1] for _ in range(3)]
         extra = (torch.cuda.max_memory_allocated() - base) if on_card else 0
         say(f"[{tag}] one microbatch ({batch['tokens'].shape[0]} x {shape['seq_len']}) forward and "
-            f"backward, remat {remat}: {statistics.median(times):.1f} ms (median of 3), peak "
-            f"{extra / 2**30:.2f} GiB above the {base / 2**30 if on_card else 0:.2f} GiB held; "
-            f"{count.n} PyTorch operations dispatched")
+            f"backward, remat {remat}: {statistics.median(times):.1f} ms (median of 3: "
+            f"{', '.join(f'{t:.1f}' for t in times)}), peak {extra / 2**30:.2f} GiB above the "
+            f"{base / 2**30 if on_card else 0:.2f} GiB held; {count.n} PyTorch operations "
+            f"dispatched; launches {remat_launches[remat]}")
+    del plain_out
+    say(f"[{tag}] remat dots and outs (and full): loss and every gradient bitwise those of none")
+    if on_card and remat_rows:  # where the card, not the host, sets the time: fewer, larger
+        # microbatches (the one above tiled); "none" would not fit at the largest
+        for rows in remat_rows:
+            big = {key: v.repeat(rows // v.shape[0], *([1] * (v.ndim - 1)))
+                   for key, v in batch.items()}
+            full_out = None
+            for remat in ("full", "dots", "outs"):
+                vg = microbatch_value_and_grad(cfg, ApplyCtx(mode="train", remat=remat))
+                out = vg(trainer.params, big)
+                if full_out is None:
+                    full_out = out
+                else:
+                    assert_bitwise(f"[{tag}] remat {remat}'s loss and gradients at {rows} rows",
+                                   [out[0][0]] + leaves(out[1]),
+                                   [full_out[0][0]] + leaves(full_out[1]))
+                del out
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                times = [clock(device, lambda: vg(trainer.params, big))[1] for _ in range(3)]
+                extra = torch.cuda.max_memory_allocated() - base
+                say(f"[{tag}] one microbatch of {rows} x {shape['seq_len']}, remat {remat}: "
+                    f"{statistics.median(times):.1f} ms (median of 3: "
+                    f"{', '.join(f'{t:.1f}' for t in times)}), peak {extra / 2**30:.2f} GiB above "
+                    f"the {base / 2**30:.2f} GiB held")
+            del full_out, big
+            torch.cuda.empty_cache()
+        say(f"[{tag}] remat dots and outs at {remat_rows} rows: bitwise full's")
     if on_card:  # where a step's time goes: one more step under the profiler (kernels only)
         from torch.profiler import ProfilerActivity, profile
 
@@ -3036,19 +3106,154 @@ def phase_train(device="cuda", cfg=None, steps=TRAIN_STEPS, shape=None, m=TRAIN_
                 f"{100 * ms_own / busy:.2f} % of the kernels' time")
     del trainer
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    return launches, k1_shape
+    return launches, k1_shape, remat_launches
 
 
 def phase_train_hybrid(device="cuda", layers=HYBRID_LAYERS, steps=HYBRID_STEPS, shape=None):
     """Phase 19: phase 17's ``Trainer`` on recurrentgemma-2b at full width,
     the registry's config cut to ``layers`` for this call only.  Returns
-    (launches, K1's shape, the cut config)."""
+    (launches, K1's shape, the cut config, one microbatch's launches by remat)."""
     from repro_torch.configs import get_arch
 
     cut = dataclasses.replace(get_arch(HYBRID_ARCH), num_layers=layers)
-    launches, k1_shape = phase_train(device, cfg=cut, steps=steps, shape=shape,
-                                     run_kw=HYBRID_RUN, tag="train-hybrid")
-    return launches, k1_shape, cut
+    launches, k1_shape, remat_launches = phase_train(device, cfg=cut, steps=steps, shape=shape,
+                                                     run_kw=HYBRID_RUN, tag="train-hybrid",
+                                                     remat_rows=())
+    return launches, k1_shape, cut, remat_launches
+
+
+# Phase 20: examples/train_hetero_torch.py at its full width (smollm-135m in
+# float32, 8 x 64 tokens in 8 microbatches), its steps cut from 300 to 36:
+# 3 refits (every 12 steps) and 3 checkpoints (every 12).
+HETERO_ARGV, HETERO_WARM = ["--steps", "36"], 2
+HETERO_DIR = ROOT / "build" / "hetero_ckpt"  # git-ignored; emptied first, removed after
+# Phase 21: examples/elastic_failover_torch.py at its own (reduced) settings.
+ELASTIC_DIR = ROOT / "build" / "failover_ckpt"
+
+
+@contextlib.contextmanager
+def k1_shapes():
+    """Records the (K, G, N) of every K1 call made inside the block, through
+    the wrapper that every scheduler path calls (``kernels.ops``); the calls
+    themselves are unchanged.  Yields the set."""
+    from repro_torch.kernels import ops
+
+    seen, inner = set(), ops._posterior_grid_fleet
+
+    def recording(grid, t, *args, **kwargs):
+        seen.add((t.shape[0], grid.shape[0], t.shape[1]))
+        return inner(grid, t, *args, **kwargs)
+
+    ops._posterior_grid_fleet = recording
+    try:
+        yield seen
+    finally:
+        ops._posterior_grid_fleet = inner
+
+
+def phase_train_hetero(device="cuda", argv=HETERO_ARGV):
+    """Phase 20: ``train_hetero_torch.main`` on the card, every step timed
+    from its start to the next one's on the host's clock (synchronised; a
+    step's drain and loss read included), through a ``Trainer`` subclass
+    that wraps the step function.  Checks the chip's conditions: finite
+    losses, the last decile's mean loss below the first's, the last
+    quarter's makespan below the first's, a split, and in the last split
+    the slow worker (22 s a unit) with no more microbatches than any other.
+    Returns (launches, drains, the (K, G, N) shapes K1 ran at)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import train_hetero_torch as hetero
+    from repro_torch import kernels
+
+    starts = []
+
+    class Timed(hetero.Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            step = self._step_fn
+
+            def timed(*a):
+                sync(device)
+                starts.append(time.perf_counter())
+                return step(*a)
+
+            self._step_fn = timed
+
+    shutil.rmtree(HETERO_DIR, ignore_errors=True)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    hetero.Trainer = Timed
+    try:
+        with k1_shapes() as shapes:
+            rep = hetero.main([*argv, "--ckpt-dir", str(HETERO_DIR),
+                               *([] if on_card else ["--device", device])])
+        sync(device)
+        starts.append(time.perf_counter())
+    finally:
+        hetero.Trainer = Timed.__bases__[0]
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    saved = sorted(p.name for p in HETERO_DIR.iterdir())
+    shutil.rmtree(HETERO_DIR, ignore_errors=True)
+    ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    steps = len(rep.losses)
+    timed = ms[HETERO_WARM:]
+    med = statistics.median(timed)
+    say(f"[hetero] examples/train_hetero_torch.py {' '.join(argv)} on {device}: step {med:.1f} ms "
+        f"median ({min(timed):.1f}-{max(timed):.1f} over steps {HETERO_WARM + 1}-{steps}; the "
+        f"first two {ms[0]:.1f}, {ms[1]:.1f}), {8 * 64 / (med / 1e3):.0f} tokens/s, peak device "
+        f"memory {peak / 2**30:.2f} GiB; checkpoints {saved}")
+    say(f"[hetero] every step's ms: {[round(t, 1) for t in ms]}")
+    q, k = max(steps // 10, 1), max(steps // 4, 1)
+    first, last = float(np.mean(rep.losses[:q])), float(np.mean(rep.losses[-q:]))
+    m_first, m_last = float(np.mean(rep.makespans[:k])), float(np.mean(rep.makespans[-k:]))
+    say(f"[hetero] splits {[s.tolist() for s in rep.splits]}; loss {first:.4f} -> {last:.4f} (deciles), "
+        f"makespan {m_first:.3f} -> {m_last:.3f} s (quarters); launches {launches}; K1 at "
+        f"(K, G, N) {sorted(shapes)}")
+    if not all(np.isfinite(rep.losses)):
+        raise AssertionError(f"[hetero] a loss is not finite: {rep.losses}")
+    if not last < first:
+        raise AssertionError(f"[hetero] the last decile's loss {last} is not below the first's {first}")
+    if not m_last < m_first:
+        raise AssertionError(f"[hetero] the last quarter's makespan {m_last} is not below {m_first}")
+    if not rep.splits or rep.splits[-1][3] > rep.splits[-1].min():
+        raise AssertionError(f"[hetero] the slow worker is not the least loaded: {rep.splits}")
+    return launches, steps // 12, shapes
+
+
+def phase_elastic(device="cuda"):
+    """Phase 21: ``elastic_failover_torch.main`` on the card at its own
+    settings: its two asserts (mu restored bitwise, pooled <= global / 2)
+    and a straggler event for worker 1, a fleet of 2, the resume at step
+    48.  Returns (launches, what main returned, its seconds, the (K, G, N)
+    shapes K1 ran at)."""
+    import shutil
+
+    import elastic_failover_torch as elastic
+    from repro_torch import kernels
+
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    kernels.reset_launch_counts()
+    with k1_shapes() as shapes:
+        out, ms = clock(device, lambda: elastic.main(
+            ["--ckpt-dir", str(ELASTIC_DIR), *([] if device == "cuda" else ["--device", device])]))
+    launches = kernels.launch_counts()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    say(f"[elastic] five phases on {device} in {ms / 1e3:.1f} s: splits {out['split1'].tolist()} -> "
+        f"{out['split2'].tolist()}, straggler {out['straggler']}, fleet {out['fleet_size']}, resumed "
+        f"at {out['resumed_step']} (mu {out['mu_restored'].tolist()}), loss {out['losses1'][0]:.4f} "
+        f"-> {out['losses4'][-1]:.4f}; phase 5 observations {out['obs']}; launches {launches}; "
+        f"K1 at (K, G, N) {sorted(shapes)}")
+    if out["straggler"] is None or out["straggler"]["workers"] != [1]:
+        raise AssertionError(f"[elastic] no straggler event for worker 1: {out['straggler']}")
+    if out["fleet_size"] != 2 or out["resumed_step"] != 48:
+        raise AssertionError(f"[elastic] fleet {out['fleet_size']}, resumed at {out['resumed_step']}")
+    return launches, out, ms / 1e3, shapes
 
 
 def phase_train_cli(device=None, full=True):
@@ -3242,17 +3447,20 @@ def main() -> int:
     if parity_launches != want:
         raise AssertionError(f"[train-parity] launches {parity_launches}, not {want}")
     say(f"[train-parity] launches: {parity_launches}")
-    train_launches, train_k1 = phase_train()
+    train_launches, train_k1, train_remat = phase_train()
     drains = TRAIN_STEPS // TRAIN_RUN["partitioner_refit_every"]
     if train_launches != dict(posterior_grid_fleet=SWEEPS * drains, decode_attention=0, lru_scan=0,
                               lru_scan_bwd=0):
         raise AssertionError(f"[train] launches {train_launches}, not {SWEEPS} x {drains} of K1")
+    none = dict(posterior_grid_fleet=0, decode_attention=0, lru_scan=0, lru_scan_bwd=0)
+    if any(c != none for c in train_remat.values()):
+        raise AssertionError(f"[train] a dense microbatch launched a kernel: {train_remat}")
     cli_launches = phase_train_cli()
     if cli_launches != dict(posterior_grid_fleet=SWEEPS, decode_attention=0, lru_scan=0,
                             lru_scan_bwd=0):
         raise AssertionError(f"[train-cli] launches {cli_launches}, not {SWEEPS} of K1 (one drain)")
     errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(train_k1))
-    hybrid_launches, hybrid_k1, hybrid_cfg = phase_train_hybrid()
+    hybrid_launches, hybrid_k1, hybrid_cfg, hybrid_remat = phase_train_hybrid()
     # a step: the cut's RG-LRU layers x 8 microbatches, K3 twice (the forward
     # and remat's recompute), its backward once; K1 20 a drain
     n = layer_kinds(hybrid_cfg).count("rglru") * TRAIN_MB * HYBRID_STEPS
@@ -3261,6 +3469,37 @@ def main() -> int:
     if hybrid_launches != want:
         raise AssertionError(f"[train-hybrid] launches {hybrid_launches}, not {want}")
     errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(hybrid_k1))
+    # one microbatch: K3 once an RG-LRU layer without remat; under "full",
+    # "dots" and "outs" twice (the policy sees only K3's allocations, so the
+    # scan is recomputed), its backward once
+    n = layer_kinds(hybrid_cfg).count("rglru")
+    for remat, got in hybrid_remat.items():
+        want = dict(posterior_grid_fleet=0, decode_attention=0, lru_scan=(1 if remat == "none" else 2) * n,
+                    lru_scan_bwd=n)
+        if got != want:
+            raise AssertionError(f"[train-hybrid] remat {remat}: launches {got}, not {want}")
+    say(f"[train-hybrid] one microbatch's launches by remat: {hybrid_remat}")
+    hetero_launches, hetero_drains, hetero_k1 = phase_train_hetero()
+    if hetero_launches != dict(none, posterior_grid_fleet=SWEEPS * hetero_drains):
+        raise AssertionError(f"[hetero] launches {hetero_launches}, not {SWEEPS} x {hetero_drains} of K1")
+    import elastic_failover_torch as elastic
+
+    elastic_launches, elastic_out, _, elastic_k1 = phase_elastic()
+    # 20 an observe at the trainers' drains (every 8 steps; each phase starts
+    # at a multiple of 8), 3 in phase 5: the fleet's 6 rounds, then one a
+    # cycle of 4 observations for each newcomer
+    obs = elastic_out["obs"]
+    want = SWEEPS * sum(n // 8 for n in elastic.PHASE_STEPS) + elastic.CFG5.n_iters * (
+        6 + (obs["pooled"] + obs["global"]) // 4)
+    if elastic_launches != dict(none, posterior_grid_fleet=want):
+        raise AssertionError(f"[elastic] launches {elastic_launches}, not {want} of K1")
+    del elastic_out
+    # K1 against its plain version at every shape the two examples gave it:
+    # the trainers' (K, G, ring capacity), 4 workers in train_hetero and 3
+    # then 2 in elastic's phases 1-4, and phase 5's fleet and newcomers
+    for shape in sorted(hetero_k1 | elastic_k1):
+        errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(shape))
+    total = lambda by_remat: {k: sum(c[k] for c in by_remat.values()) for k in none}
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
                    serve_whisper=whisper_launches, serve_internvl2=internvl_launches,
@@ -3271,9 +3510,11 @@ def main() -> int:
                    example_partitioned=example_launches, checkpoint=ckpt_launches,
                    legacy=legacy_launches, fault_tolerance=fault_launches,
                    train_parity=parity_launches, train=train_launches, train_cli=cli_launches,
-                   train_hybrid=hybrid_launches)
-    stray = {p: c["lru_scan_bwd"] for p, c in by_path.items()
-             if c.get("lru_scan_bwd") and p not in ("train_parity", "train_hybrid")}
+                   train_hybrid=hybrid_launches, train_remat=total(train_remat),
+                   train_hybrid_remat=total(hybrid_remat), example_train_hetero=hetero_launches,
+                   example_elastic=elastic_launches)
+    stray = {p: c["lru_scan_bwd"] for p, c in by_path.items() if c.get("lru_scan_bwd")
+             and p not in ("train_parity", "train_hybrid", "train_hybrid_remat")}
     if stray:
         raise AssertionError(f"K3's backward launched off the training paths: {stray}")
     kernels = [

@@ -110,7 +110,7 @@ class RunConfig:
     total_steps: int = 1000
     weight_decay: float = 0.1
     grad_clip: float = 1.0
-    remat: str = "full"  # none | full | dots
+    remat: str = "full"  # none | full | dots | outs (models.layers.ApplyCtx.remat)
     # AdamW moment dtype: bfloat16 for 100B+ models (HBM-fitting trade)
     optimizer_dtype: str = "float32"
     # gradient accumulation dtype (bfloat16 halves grad buffers; error is

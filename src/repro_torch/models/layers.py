@@ -33,7 +33,9 @@ class ApplyCtx:
 
     mode: str = "train"  # train | prefill | decode
     q_chunk: int = 2048
-    remat: str = "none"  # layer-cycle remat in train mode: none | full (dots, outs: item 15)
+    # layer-cycle remat in train mode: none | full (recompute the cycle) | dots
+    # (keep the weight products) | outs (keep the attention and FFN outputs)
+    remat: str = "none"
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,17 @@ step never reads the device.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from . import moe as moe_lib
@@ -32,7 +38,7 @@ from .layers import (
     rmsnorm,
     rmsnorm_spec,
 )
-from .params import P, stack_spec, tree_map
+from .params import P, leaves, stack_spec, tree_map
 
 PORTED_KINDS = ("dense", "moe", "localattn", "enc", "xdec", "rglru", "mlstm", "slstm")
 # the recurrent mixers' (spec, cache, block) by kind: the blocks that attend to nothing
@@ -41,6 +47,62 @@ MIXERS = {
     "mlstm": (rec.mlstm_spec, rec.init_mlstm_cache, rec.mlstm_block),
     "slstm": (rec.slstm_spec, rec.init_slstm_cache, rec.slstm_block),
 }
+
+
+# ---------------------------------------------------------------------------
+# layer-cycle remat (train mode): what a checkpointed cycle keeps for backward
+# ---------------------------------------------------------------------------
+
+REMATS = ("none", "full", "dots", "outs")
+# "outs" keeps the tensors of these names, the reference's
+# save_only_these_names; moe_recv and moe_back are set on the expert-parallel
+# path only, which the port does not have yet (ROADMAP item 10)
+SAVED_NAMES = ("attn_out", "mlp_out", "moe_recv", "moe_back")
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: Tensor, name: str) -> Tensor:
+    """A named identity that the "outs" policy can see: one copy of x."""
+    return x.clone()
+
+
+_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None),
+                                   setup_context=lambda ctx, inputs, output: None)
+
+
+def checkpoint_name(x: Tensor, name: str, ctx: ApplyCtx) -> Tensor:
+    """Name ``x`` for remat "outs"; under any other setting ``x`` itself, with
+    no operation dispatched.  ``_run_stack`` hands the blocks a ctx whose
+    remat is "outs" only inside a checkpointed cycle."""
+    return _checkpoint_name(x, name) if ctx.remat == "outs" else x
+
+
+def remat_policy(remat: str, weights) -> Any:
+    """The selective-checkpoint policy of "dots" or "outs" over one cycle
+    whose parameters live in the storages ``weights`` (their data pointers).
+
+    "dots" keeps a product whose operands share no batch dimension, the
+    reference's dots_with_no_batch_dims_saveable: every ``aten.mm`` (x @ W,
+    the MoE router's product on its weight cast to float32 included), and a
+    weight einsum, which reaches ``aten.bmm`` at batch 1.  The batch alone
+    cannot tell such a bmm from attention's, which is at batch 1 too at one
+    sequence and one KV head: a bmm is kept only when an operand is a
+    weight, and never at a batch above 1 (the MoE's per-expert products,
+    recomputed as in the reference).  "outs" keeps what ``checkpoint_name``
+    named in ``SAVED_NAMES``.  Every other operation is recomputed: the
+    kernels' launches through ctypes are invisible here, and the policy sees
+    only their outputs' allocations, which must be made anew."""
+
+    def policy(ctx, op, *args, **kwargs):
+        if remat == "outs":
+            save = op is torch.ops.repro_torch.checkpoint_name.default and args[1] in SAVED_NAMES
+        else:
+            save = op is torch.ops.aten.mm.default or (
+                op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+                and any(t.untyped_storage().data_ptr() in weights for t in args[:2]))
+        return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
 
 
 def _check_kind(kind: str) -> None:
@@ -114,6 +176,7 @@ def block_apply(
         self_cache = cache["self"] if kind == "xdec" and cache is not None else cache
         y, _ = attention(cfg, params["attn"], h, ctx=ctx, causal=kind != "enc", window=window,
                          positions=positions, length=length, cache=self_cache)
+        y = checkpoint_name(y, "attn_out", ctx)
     x = x + y
     if kind == "xdec":
         h = rmsnorm(params["lnx"], x, cfg.norm_eps)
@@ -130,7 +193,7 @@ def block_apply(
                 aux = moe_lib.load_balance_loss(cfg, probs)
         else:
             y = mlp(cfg, params["ffn"], h)
-        x = x + y
+        x = x + checkpoint_name(y, "mlp_out", ctx)
     return x, aux
 
 
@@ -203,20 +266,21 @@ def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions:
                length: Optional[Tensor], cache: Optional[Dict[str, Any]],
                enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """The layer loop: every cycle of the pattern, then the remainder.
-    Returns (x, the sum of the blocks' aux losses).  In train mode with
-    ``ctx.remat == "full"`` each cycle runs under activation checkpointing
-    (its activations are recomputed in the backward pass), as the reference
-    wraps its cycle in ``jax.checkpoint``; the remainder is not wrapped."""
+    Returns (x, the sum of the blocks' aux losses).  In train mode with a
+    gradient, ``ctx.remat`` other than "none" runs each cycle under
+    activation checkpointing, as the reference wraps its cycle in
+    ``jax.checkpoint``: "full" recomputes all of it in the backward pass,
+    "dots" and "outs" keep what ``remat_policy`` saves.  The remainder is
+    not wrapped, and runs as under "none"."""
     n_cycles, rest = _cycles_and_rest(cfg)
     use = cache is not None
     train = ctx.mode == "train"
-    if train and ctx.remat in ("dots", "outs"):
-        raise NotImplementedError(f"remat {ctx.remat!r} (a saving policy) is ROADMAP item 15; "
-                                  "use 'full' or 'none'")
-    if train and ctx.remat not in ("none", "full"):
-        raise ValueError(f"remat {ctx.remat!r}: none | full | dots | outs")
+    if train and ctx.remat not in REMATS:
+        raise ValueError(f"remat {ctx.remat!r}: {' | '.join(REMATS)}")
+    remat = ctx.remat if train and torch.is_grad_enabled() else "none"
+    plain = ctx if ctx.remat == "none" else dataclasses.replace(ctx, remat="none")
 
-    def run(layers, x, aux):
+    def run(layers, x, aux, ctx=plain):
         for kind, p, c in layers:
             x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length,
                                cache=c, enc_out=enc_out)
@@ -224,14 +288,19 @@ def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions:
                 aux = aux + a
         return x, aux
 
+    saving = {}
+    if remat in ("dots", "outs"):
+        weights = {t.untyped_storage().data_ptr() for t in leaves(params["cycles"])}
+        saving["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                 remat_policy(remat, weights))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_cycles):
         cycle = [(kind, _at(params["cycles"][j], i), _at(cache["cycles"][j], i) if use else None)
                  for j, kind in enumerate(cfg.pattern)]
-        if train and ctx.remat == "full" and torch.is_grad_enabled():
-            x, aux = checkpoint(run, cycle, x, aux, use_reentrant=False)
-        else:
+        if remat == "none":
             x, aux = run(cycle, x, aux)
+        else:
+            x, aux = checkpoint(run, cycle, x, aux, ctx, use_reentrant=False, **saving)
     return run([(kind, params["rest"][j], cache["rest"][j] if use else None)
                 for j, kind in enumerate(rest)], x, aux)
 

@@ -99,7 +99,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.train.train_step, repro_torch.train.trainer\n"
         "import repro_torch.launch.train, repro_torch.configs.shapes\n"
         "sys.path.insert(0, 'examples')\n"
-        "import serve_partitioned_torch\n"
+        "import serve_partitioned_torch, train_hetero_torch, elastic_failover_torch\n"
         "bad = [m for m, mod in sys.modules.items()\n"
         "       if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"

@@ -19,6 +19,7 @@ Tolerances, float32:
   gradients' tolerance.
 """
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -65,10 +66,12 @@ def one_torch_thread():
 
 
 @functools.lru_cache(maxsize=None)
-def model(name):
-    """(reference config, port config, numpy weights) of a reduced arch."""
-    jcfg = jreduced(ARCHS[name], **FAMILIES.get(name, {}))
-    tcfg = reduced(get_arch(name), **FAMILIES.get(name, {}))
+def model(name, **over):
+    """(reference config, port config, numpy weights) of a reduced arch,
+    with ``over`` on top of its family's overrides."""
+    over = {**FAMILIES.get(name, {}), **over}
+    jcfg = jreduced(ARCHS[name], **over)
+    tcfg = reduced(get_arch(name), **over)
     return jcfg, tcfg, draw_params(jz.model_spec(jcfg), jcfg.use_bias)
 
 
@@ -140,20 +143,187 @@ def test_loss_and_microbatch_gradients_match_reference(name):
     assert_grads(grads, want)
 
 
-def test_full_remat_gives_the_gradients_of_none_and_dots_raises():
-    _, tcfg, tree = model("recurrentgemma-2b")
+REMAT_ARCHS = ("tinyllama-1.1b", "granite-moe-3b-a800m", "recurrentgemma-2b")
+
+
+@functools.lru_cache(maxsize=None)
+def _remat_run(name, remat):
+    _, tcfg, tree = model(name)
     _, tb = both(batch(tcfg))
-    out = {r: tts.microbatch_value_and_grad(tcfg, tl.ApplyCtx(mode="train", remat=r))(
-        tparams(tree), tb) for r in ("none", "full")}
-    (l0, _), g0 = out["none"]
-    (l1, _), g1 = out["full"]
+    return tts.microbatch_value_and_grad(tcfg, tl.ApplyCtx(mode="train", remat=remat))(
+        tparams(tree), tb)
+
+
+@pytest.mark.parametrize("name", REMAT_ARCHS)
+@pytest.mark.parametrize("remat", ["full", "dots", "outs"])
+def test_remat_gives_the_loss_and_gradients_of_none(remat, name):
+    """Each setting recomputes or keeps the same operations' results: the
+    loss and every gradient bitwise "none"'s."""
+    (l0, _), g0 = _remat_run(name, "none")
+    (l1, _), g1 = _remat_run(name, remat)
     assert float(l0) == float(l1)
+    assert len(leaves(g0)) == len(leaves(g1))
     for a, b in zip(leaves(g0), leaves(g1)):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)  # the same operations, recomputed
-    for policy in ("dots", "outs"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tts.microbatch_value_and_grad(tcfg, tl.ApplyCtx(mode="train", remat=policy))(
-                tparams(tree), tb)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_an_unknown_remat_raises():
+    _, tcfg, tree = model("tinyllama-1.1b")
+    _, tb = both(batch(tcfg))
+    with pytest.raises(ValueError, match=re.escape("'some': none | full | dots | outs")):
+        tts.microbatch_value_and_grad(tcfg, tl.ApplyCtx(mode="train", remat="some"))(
+            tparams(tree), tb)
+
+
+@pytest.mark.parametrize("remat", ["dots", "outs"])
+def test_saving_policies_match_the_reference_gradients(remat):
+    jcfg, tcfg, tree = model("recurrentgemma-2b")
+    jb, tb = both(batch(tcfg))
+    (loss, _), got = _remat_run("recurrentgemma-2b", remat)
+    (want_loss, _), want = jax.jit(jts.microbatch_value_and_grad(
+        jcfg, jl.ApplyCtx(mode="train", remat=remat)))(jparams(tree), jb)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=LOSS_RTOL)
+    assert_grads(got, want)
+
+
+def _reference_cycle(name, remat, **over):
+    """What the reference's checkpointed cycle holds: the ``dot_general``s
+    with no batch dimension, and the names of its ``checkpoint_name``s."""
+    jcfg, tcfg, tree = model(name, **over)
+    jb, _ = both(batch(tcfg))
+    ctx = jl.ApplyCtx(mode="train", remat=remat)
+    closed = jax.make_jaxpr(lambda p: jts.loss_fn(jcfg, p, jb, ctx))(jparams(tree))
+    found = dict(cycles=0, dots=0, names=[])
+
+    def walk(jaxpr, inside):
+        for eqn in jaxpr.eqns:
+            remat = eqn.primitive.name in ("checkpoint", "remat2")  # jax.checkpoint's
+            here = inside or remat
+            found["cycles"] += remat
+            if here and eqn.primitive.name == "dot_general":
+                (_, _), (batch_l, _) = eqn.params["dimension_numbers"]
+                found["dots"] += not batch_l
+            if here and eqn.primitive.name == "name":
+                found["names"].append(eqn.params["name"])
+            for value in eqn.params.values():
+                for sub in value if isinstance(value, (list, tuple)) else [value]:
+                    sub = getattr(sub, "jaxpr", sub)
+                    if hasattr(sub, "eqns"):
+                        walk(sub, here)
+
+    walk(closed.jaxpr, False)
+    assert found["cycles"] == 1  # the scan's body, traced once
+    return found
+
+
+def _saved_a_cycle(name, remat, monkeypatch, **over):
+    """How many results the port's policy keeps over one cycle of the
+    reduced arch's microbatch (its forward, not the recompute), with the
+    weights in the model's dtype, as a trainer holds them."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from repro_torch.models import model_zoo, transformer
+
+    saved = []
+    policy = transformer.remat_policy
+
+    def counting(which, weights):
+        inner = policy(which, weights)
+
+        def count(ctx, op, *args, **kwargs):
+            decision = inner(ctx, op, *args, **kwargs)
+            if not ctx.is_recompute and decision == CheckpointPolicy.MUST_SAVE:
+                saved.append(op)
+            return decision
+
+        return count
+
+    monkeypatch.setattr(transformer, "remat_policy", counting)
+    _, tcfg, _ = model(name, **over)
+    _, tb = both(batch(tcfg))
+    params = model_zoo.init_model_params(tcfg, seed=0, device="cpu")
+    tts.microbatch_value_and_grad(tcfg, tl.ApplyCtx(mode="train", remat=remat))(params, tb)
+    n_cycles = tcfg.num_layers // len(tcfg.pattern)
+    assert len(saved) % n_cycles == 0
+    return len(saved) // n_cycles, saved
+
+
+@pytest.mark.parametrize("name, dtype", [(name, "float32") for name in REMAT_ARCHS]
+                         + [("granite-moe-3b-a800m", "bfloat16")])
+def test_dots_saves_the_products_the_reference_saves(name, dtype, monkeypatch):
+    """As many products a cycle as the reference's cycle has dot_generals
+    with no batch dimension: the weight products (7 a dense layer; the MoE
+    layer's router but not its per-expert products; 8 an RG-LRU layer).
+    In bfloat16 the router's product is on its weight cast to float32
+    inside the cycle, a tensor that is no parameter: it is kept all the
+    same, as the reference keeps it."""
+    n, saved = _saved_a_cycle(name, "dots", monkeypatch, dtype=dtype)
+    assert n == _reference_cycle(name, "dots", dtype=dtype)["dots"]
+    assert n == {"tinyllama-1.1b": 7, "granite-moe-3b-a800m": 5, "recurrentgemma-2b": 23}[name]
+    assert set(saved) <= {torch.ops.aten.mm.default, torch.ops.aten.bmm.default}
+
+
+@pytest.mark.parametrize("name", REMAT_ARCHS)
+def test_outs_saves_exactly_the_named_outputs(name, monkeypatch):
+    """The tensors the reference names in its cycle: an attention layer's
+    output and an FFN's, two a dense or MoE layer, one an RG-LRU layer."""
+    from repro_torch.models.transformer import MIXERS
+
+    n, saved = _saved_a_cycle(name, "outs", monkeypatch)
+    names = _reference_cycle(name, "outs")["names"]
+    _, tcfg, _ = model(name)
+    assert n == len(names) == sum((kind not in MIXERS) + 1 for kind in tcfg.pattern)
+    assert set(saved) == {torch.ops.repro_torch.checkpoint_name.default}
+
+
+# The PyTorch operations (TorchDispatchMode) of reduced archs from
+# ``init_model_params(seed=0)`` at a (2, 12) batch: a microbatch's forward
+# and backward under "none" and "full", a prefill of 8 tokens and one decode
+# step after it, as the port dispatched them before "dots" and "outs"
+# existed (torch 2.13.0, the CPU).  The names add nothing outside "outs".
+DISPATCHED = {"tinyllama-1.1b": dict(none=879, full=1335, prefill=399, decode=383),
+              "granite-moe-3b-a800m": dict(none=1178, full=1854, prefill=559, decode=543),
+              "recurrentgemma-2b": dict(none=1322, full=2022, prefill=492, decode=404)}
+
+
+@pytest.mark.parametrize("name", REMAT_ARCHS)
+def test_decode_and_none_and_full_dispatch_the_operations_they_did(name):
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models import model_zoo
+    from repro_torch.train import serve_step
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    cfg = reduced(get_arch(name))
+    params = model_zoo.init_model_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tb = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12), generator=gen),
+          "labels": torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)}
+    got = {}
+    for remat in ("none", "full"):
+        vg = tts.microbatch_value_and_grad(cfg, tl.ApplyCtx(mode="train", remat=remat))
+        with Count() as count:
+            vg(params, tb)
+        got[remat] = count.ops
+    prefill = serve_step.make_prefill_step(cfg, ctx=tl.ApplyCtx(mode="prefill"))
+    decode = serve_step.make_decode_step(cfg, ctx=tl.ApplyCtx(mode="decode"))
+    cache = model_zoo.init_cache(cfg, 2, 16, torch.float32, device="cpu")
+    with Count() as count:
+        token, cache = prefill(params, {"tokens": tb["tokens"][:, :8]}, cache)
+    got["prefill"] = count.ops
+    with Count() as count:
+        decode(params, token, cache)
+    got["decode"] = count.ops
+    assert {k: len(v) for k, v in got.items()} == DISPATCHED[name]
+    assert all(torch.ops.repro_torch.checkpoint_name.default not in v for v in got.values())
 
 
 def test_split_microbatches_matches_reference():
@@ -324,3 +494,34 @@ def test_hybrid_microbatch_on_the_card_matches_the_cpu():
         assert g.is_cuda and g.shape == w.shape
         err = float((g.cpu() - w).abs().max())
         assert err <= GRAD_REL * float(w.abs().max()) + 1e-8, (tuple(w.shape), err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["dots", "outs"])
+def test_saving_policies_on_the_card_give_none_and_recompute_the_scan(remat):
+    """The reduced hybrid microbatch on the card under "dots" and "outs":
+    the loss and gradients bitwise the card's under "none"; K3 is
+    recomputed as under "full" (the policy sees only its allocations), so
+    each RG-LRU layer launches it twice and its backward once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import kernels
+    from repro_torch.models.transformer import layer_kinds
+
+    _, tcfg, tree = model("recurrentgemma-2b")
+    _, tb = both(batch(tcfg))
+    params = convert.model_params_from_jax(tree, "cuda")
+    tb = {k: v.cuda() for k, v in tb.items()}
+    (want_loss, _), want = tts.microbatch_value_and_grad(tcfg, tl.ApplyCtx(mode="train"))(params, tb)
+    before = kernels.launch_counts()
+    (loss, _), got = tts.microbatch_value_and_grad(
+        tcfg, tl.ApplyCtx(mode="train", remat=remat))(params, tb)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    n = layer_kinds(tcfg).count("rglru")
+    assert after["lru_scan"] - before["lru_scan"] == 2 * n
+    assert after["lru_scan_bwd"] - before["lru_scan_bwd"] == n
+    assert float(loss) == float(want_loss)
+    for g, w in zip(leaves(got), leaves(want)):
+        assert torch.equal(g, w), tuple(w.shape)
