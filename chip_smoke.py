@@ -253,6 +253,24 @@ result lines:
      against its plain version at every shape the example gave it (the
      trainers' (3, 256, 16) and (2, 256, 16), phase 5's (8, 32, 8) and
      (9, 32, 4)).
+ 22. the estimator's fleet sharding (``repro_torch.core.sharding``) on a
+     one-rank NCCL world started in this process (a ``FileStore`` under
+     ``build/``, any stale one deleted first), its mesh from
+     ``ShardingConfig.auto()`` (1 shard): the host ms of one all-gather of
+     four (K,) leaves at both K below and of the 13-scalar ``all_reduce``;
+     phase 6's fleet (K = 4096, N = 256, 3 cycles of observe -> propose ->
+     quantize) under ``SchedulerConfig(mesh=...)`` beside an unsharded
+     twin from the same seed on the same telemetry, log-likelihoods, states, generators,
+     fractions and counts bitwise (or within 1e-4, said which), the sharded
+     observe and propose under sync-debug "error" after one warm-up
+     observe, 60 K1 launches (``launches_by_path["sharded"]``), the oracle
+     gap (>= 80 %); one ``observe_dag`` of phase 11's DAG (S K = 4096, 20
+     K1 launches, "sharded_dag"); ``fit_hyperprior_sharded`` (rtol 1e-5),
+     ``shrink`` and ``surprise`` against their unsharded forms and one
+     hierarchical ``admit_workers`` on the mesh; one observe at phase 9
+     (e)'s scale, K = 100 000, G 512, N 8, 20 sweeps (20 K1 launches,
+     "sharded_fleet_scale"); the ms and peak memory of each observe sharded
+     and unsharded.  The world is destroyed at the end of the phase.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -1222,11 +1240,16 @@ def phase_teacher_forcing():
 
 
 def leaves(tree):
-    """The tensors of a nested NamedTuple state, in order."""
+    """The tensors of a nested NamedTuple state or tuple, in order; a
+    generator as its state, a None field as nothing."""
     import torch
 
+    if isinstance(tree, torch.Generator):
+        return [tree.get_state()]
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if tree is None:
+        return []
     return [x for part in tree for x in leaves(part)]
 
 
@@ -3344,6 +3367,253 @@ def phase_train_k1_parity(shape):
     return worst
 
 
+SHARD_STORE = ROOT / "build" / "sharding_store"  # git-ignored; the one-rank world's FileStore
+
+
+def agree(what, got, want, rtol, atol=None):
+    """"bitwise" when every leaf of ``got`` (a generator's state included)
+    equals ``want``'s bit for bit; else every leaf within ``rtol`` (and
+    ``atol``, by default ``rtol``) of ``want``'s, the generators still
+    equal, and the largest |difference| is said.  Raises otherwise."""
+    import torch
+
+    pairs = list(zip(leaves(got), leaves(want), strict=True))
+    if all(g.shape == w.shape and torch.equal(g, w) for g, w in pairs):
+        return "bitwise"
+    worst = 0.0
+    for g, w in pairs:
+        if g.dtype == torch.uint8:  # a generator's state
+            raise AssertionError(f"[sharded] {what}: the generators' states differ")
+        if not torch.allclose(g.double(), w.double(), rtol=rtol, atol=rtol if atol is None else atol):
+            raise AssertionError(f"[sharded] {what}: beyond rtol {rtol:g}")
+        worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return f"within rtol {rtol:g} (max|d| {worst:.3e}, not bitwise)"
+
+
+def observed(device, run):
+    """``run()``'s result, its ms on the host's clock (device synchronised),
+    the peak device memory it reached, and the K1 launches it made."""
+    import torch
+    from repro_torch import kernels
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out, ms = clock(device, run)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else 0
+    return out, ms, peak, launches
+
+
+def sharded_fleet(device, mesh, k, n):
+    """Phase 6's fleet under ``SchedulerConfig(mesh=...)`` beside an
+    unsharded twin from the same seed, on the same telemetry."""
+    import torch
+    from repro_torch import sched
+    from repro_torch.device import no_sync
+
+    total = 8 * k
+    plain = sched.SchedulerConfig(min_fraction=1.0 / total)
+    meshed = dataclasses.replace(plain, mesh=mesh)
+    truth, gen = fleet_truth(device, k)
+    uniform = torch.full((k,), 1.0 / k, device=device)
+    # warm-up: the communicator is made at the first collective, which waits
+    warm = sched.init(meshed, k, seed=1, device=device)
+    sched.observe(warm, fleet_telemetry(truth, uniform, torch.Generator(device=device).manual_seed(5), n),
+                  meshed)
+    one, two = sched.init(plain, k, seed=0, device=device), sched.init(meshed, k, seed=0, device=device)
+    fracs, launches, verdicts = uniform, {}, set()
+    for c in range(CYCLES):
+        telem = fleet_telemetry(truth, fracs, gen, n)
+        (one, ll1), ms1, peak1, _ = observed(device, lambda: sched.observe(one, telem, plain))
+
+        def sharded_observe():
+            with no_sync(device):
+                return sched.observe(two, telem, meshed)
+
+        (two, ll2), ms2, peak2, got = observed(device, sharded_observe)
+        for name, count in got.items():
+            launches[name] = launches.get(name, 0) + count
+        fr1, st1 = sched.propose(one, plain)
+        with no_sync(device):
+            fr2, st2 = sched.propose(two, meshed)
+        q = lambda fr, st: sched.quantize_fractions(fr.cpu().numpy(), total, sched.unit_params(st),
+                                                    objective=plain.objective)
+        c1, c2 = q(fr1, one), q(fr2, two)
+        v = agree(f"cycle {c}", (ll2, two.gibbs, two.generator, fr2, st2),
+                  (ll1, one.gibbs, one.generator, fr1, st1), rtol=1e-4)
+        verdicts.add(v)
+        if not (c1 == c2).all():
+            raise AssertionError(f"[sharded] cycle {c}: quantized counts differ at "
+                                 f"{int((c1 != c2).sum())} workers")
+        say(f"[sharded] fleet K={k} N={n} cycle {c}: observe sharded {ms2:.1f} ms (sync-free, peak "
+            f"{peak2 / 2**20:.1f} MiB) vs unsharded {ms1:.1f} ms (peak {peak1 / 2**20:.1f} MiB); "
+            f"log-likelihoods, states, generator, fractions: {v}; counts equal")
+        fracs = fr2
+    gap, (s_uni, s_prop, s_orc) = oracle_gap(truth, fracs, meshed)
+    say(f"[sharded] fleet: E[t] under the truth uniform {s_uni:.5f}, proposed {s_prop:.5f}, oracle "
+        f"{s_orc:.5f}: oracle gap recovered {100 * gap:.1f} %; K1 launches {launches}")
+    return launches, gap, two
+
+
+def sharded_dag(device, mesh, k, n):
+    """One ``observe_dag`` of phase 11's 8-stage DAG (S K = 8 k) sharded
+    against unsharded."""
+    import torch
+    from repro_torch import sched
+    from repro_torch.device import no_sync
+
+    _, sto = dag_topology(k)
+    truth = dag_truth(k, device)
+    plain = sched.SchedulerConfig(n_iters=SWEEPS, grid_size=GRID, min_fraction=1.0 / (8 * k))
+    meshed = dataclasses.replace(plain, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(2017)
+    f = (1.0 / k) * torch.exp(-2.0 + 4.0 * torch.rand((8, k, n), generator=gen, device=device))
+    eps = torch.randn((8, k, n), generator=gen, device=device)
+    t = (f ** truth.alpha[..., None] * truth.mu[..., None]
+         + f ** truth.beta[..., None] * truth.sigma[..., None] * eps)
+    telem = sched.Telemetry(fracs=f, times=t)
+    one, two = (sched.init_dag(c, sto, seed=0, device=device) for c in (plain, meshed))
+    (one, ll1), ms1, _, _ = observed(device, lambda: sched.observe_dag(one, telem, plain, dag=sto))
+
+    def sharded():
+        with no_sync(device):
+            return sched.observe_dag(two, telem, meshed, dag=sto)
+
+    (two, ll2), ms2, _, launches = observed(device, sharded)
+    v = agree("observe_dag", (ll2, two.gibbs, two.generator), (ll1, one.gibbs, one.generator),
+              rtol=1e-4)
+    say(f"[sharded] DAG S K = 8 x {k}, N={n}: observe_dag sharded {ms2:.1f} ms (sync-free) vs "
+        f"unsharded {ms1:.1f} ms; log-likelihoods, states, generator: {v}; K1 launches {launches}")
+    return launches
+
+
+def sharded_hier(device, mesh, state, k, n):
+    """The hierarchical calls on the mesh against their unsharded forms:
+    the refit, shrink and surprise on ``state`` (phase 22's sharded fleet),
+    and one hierarchical ``admit_workers`` into a capacity state's dead
+    slots."""
+    import torch
+    from repro_torch import hier, sched
+
+    fleet = state.gibbs
+    h1 = hier.fit_hyperprior(fleet)
+    v_fit = agree("fit_hyperprior_sharded", hier.fit_hyperprior_sharded(fleet, mesh), h1, 1e-5, 0.0)
+    v_shrink = agree("shrink", hier.shrink(fleet, h1, sharding=mesh), hier.shrink(fleet, h1), 1e-5)
+    v_surprise = agree("surprise", hier.surprise(fleet, h1, sharding=mesh), hier.surprise(fleet, h1),
+                       1e-5)
+    plain = sched.SchedulerConfig(hierarchical=True, min_fraction=1.0 / (8 * k))
+    meshed = dataclasses.replace(plain, mesh=mesh)
+    truth, gen = fleet_truth(device, k)
+    telem = fleet_telemetry(truth, torch.full((k,), 1.0 / k, device=device), gen, n)
+    admit = k // 64  # into as many dead slots
+    one, two = (sched.init(c, k - admit, seed=3, device=device, capacity=k) for c in (plain, meshed))
+    one, _ = sched.observe(one, telem, plain)
+    two, _ = sched.observe(two, telem, meshed)
+    one, two = sched.admit_workers(one, admit, plain), sched.admit_workers(two, admit, meshed)
+    v_admit = agree("hierarchical admit_workers", (two.gibbs, two.live, two.generator),
+                    (one.gibbs, one.live, one.generator), rtol=1e-4)
+    if int(two.live.sum()) != k:
+        raise AssertionError(f"[sharded] {int(two.live.sum())} live slots after the admission, not {k}")
+    say(f"[sharded] hierarchical: fit_hyperprior_sharded {v_fit}, shrink {v_shrink}, "
+        f"surprise {v_surprise}; admit_workers into the {admit} dead slots of {k}: {v_admit}")
+
+
+def sharded_fleet_scale(device, mesh, k):
+    """One observe at phase 9 (e)'s scale (G 512, N 8, 20 sweeps) sharded
+    against unsharded."""
+    import torch
+    from repro_torch import sched
+    from repro_torch.device import no_sync
+
+    plain = sched.SchedulerConfig(n_iters=SWEEPS, grid_size=SVC_G, mu_guess=1.25,
+                                  min_fraction=1.0 / (8 * k))
+    meshed = dataclasses.replace(plain, mesh=mesh)
+    fracs, times = service_truth(k, device, seed=4)
+    telem = sched.Telemetry(fracs=fracs[:, None].expand(k, SVC_RING).contiguous(),
+                            times=torch.stack([times() for _ in range(SVC_RING)], dim=1))
+    one, two = (sched.init(c, k, seed=1, device=device) for c in (plain, meshed))
+    (one, ll1), ms1, peak1, _ = observed(device, lambda: sched.observe(one, telem, plain))
+
+    def sharded():
+        with no_sync(device):
+            return sched.observe(two, telem, meshed)
+
+    (two, ll2), ms2, peak2, launches = observed(device, sharded)
+    v = agree(f"observe at K={k}", (ll2, two.gibbs, two.generator), (ll1, one.gibbs, one.generator),
+              rtol=1e-4)
+    say(f"[sharded] K={k} G={SVC_G} N={SVC_RING}, {SWEEPS} sweeps: observe sharded {ms2:.1f} ms (peak "
+        f"{peak2 / 2**20:.1f} MiB, sync-free) vs unsharded {ms1:.1f} ms (peak {peak1 / 2**20:.1f} MiB); "
+        f"{v}; K1 launches {launches}")
+    return launches
+
+
+def time_collectives(device, mesh, ks, runs=200):
+    """The collectives' cost at one rank: the host ms of one
+    ``gather_fleet`` of four (K,) float32 leaves (two of them a Gibbs sweep,
+    as the Normal-Gamma and Beta parameters) and of the hyperprior's
+    ``all_reduce`` of 13 scalars, each over ``runs`` calls with the device
+    synchronised at the end."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.sharding import gather_fleet
+
+    def per_call(fn):
+        fn()
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        sync(device)
+        return (time.perf_counter() - t0) * 1e3 / runs
+
+    out = {}
+    for k in ks:
+        leaves = tuple(torch.rand((k,), device=device) for _ in range(4))
+        out[f"gather K={k}"] = per_call(lambda: gather_fleet(leaves, mesh))
+    stats = torch.zeros((13,), device=device)
+    out["all_reduce of 13"] = per_call(lambda: dist.all_reduce(stats, group=mesh.group))
+    say(f"[sharded] collectives at one rank, host ms a call over {runs} calls: "
+        + ", ".join(f"{name} {ms:.4f}" for name, ms in out.items()))
+
+
+def phase_sharded(device="cuda", k=K_FLEET, n=N_OBS, big_k=SVC_K, dag_k=DAG_K, dag_n=DAG_N):
+    """Phase 22: the estimator's fleet sharding (``repro_torch.core.sharding``)
+    on a one-rank world started in this process (NCCL on the card, gloo on
+    the CPU), over ``ShardingConfig.auto()``: the collectives' cost, then
+    phase 6's fleet, phase 11's DAG, the hierarchical calls and one observe
+    at K = 100 000, each against its unsharded twin.  The world is destroyed at the end.  Returns the K1
+    launches of the sharded calls by path, and the fleet's oracle gap."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.sharding import ShardingConfig
+
+    SHARD_STORE.parent.mkdir(parents=True, exist_ok=True)
+    SHARD_STORE.unlink(missing_ok=True)  # a stale store from a cut run would hang the rendezvous
+    backend = "nccl" if device != "cpu" else "gloo"
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(str(SHARD_STORE), 1), rank=0, world_size=1)
+    try:
+        mesh = ShardingConfig.auto()
+        if mesh.num_shards != 1 or mesh.mesh.device_type != torch.device(device).type:
+            raise AssertionError(f"[sharded] mesh {mesh} on {device}")
+        say(f"[sharded] {backend} world of 1 rank, mesh {mesh.mesh} axis {mesh.axis!r}, "
+            f"{mesh.num_shards} shard")
+        time_collectives(device, mesh, (k, big_k))
+        fleet_launches, gap, state = sharded_fleet(device, mesh, k, n)
+        dag_launches = sharded_dag(device, mesh, dag_k, dag_n)
+        sharded_hier(device, mesh, state, k, n)
+        del state
+        scale_launches = sharded_fleet_scale(device, mesh, big_k)
+    finally:
+        dist.destroy_process_group()
+        SHARD_STORE.unlink(missing_ok=True)
+    return dict(sharded=fleet_launches, sharded_dag=dag_launches,
+                sharded_fleet_scale=scale_launches), gap
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -3499,6 +3769,14 @@ def main() -> int:
     # then 2 in elastic's phases 1-4, and phase 5's fleet and newcomers
     for shape in sorted(hetero_k1 | elastic_k1):
         errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(shape))
+    sharded_launches, sharded_gap = phase_sharded()
+    want = dict(sharded=dict(none, posterior_grid_fleet=CYCLES * SWEEPS),  # 20 an observe
+                sharded_dag=dict(none, posterior_grid_fleet=SWEEPS),
+                sharded_fleet_scale=dict(none, posterior_grid_fleet=SWEEPS))
+    if sharded_launches != want:
+        raise AssertionError(f"[sharded] launches {sharded_launches}, not {want}")
+    if sharded_gap < 0.8:
+        raise AssertionError(f"[sharded] oracle gap recovered {100 * sharded_gap:.1f} % < 80 %")
     total = lambda by_remat: {k: sum(c[k] for c in by_remat.values()) for k in none}
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
@@ -3512,7 +3790,7 @@ def main() -> int:
                    train_parity=parity_launches, train=train_launches, train_cli=cli_launches,
                    train_hybrid=hybrid_launches, train_remat=total(train_remat),
                    train_hybrid_remat=total(hybrid_remat), example_train_hetero=hetero_launches,
-                   example_elastic=elastic_launches)
+                   example_elastic=elastic_launches, **sharded_launches)
     stray = {p: c["lru_scan_bwd"] for p, c in by_path.items() if c.get("lru_scan_bwd")
              and p not in ("train_parity", "train_hybrid", "train_hybrid_remat")}
     if stray:

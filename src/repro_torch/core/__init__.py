@@ -1,6 +1,7 @@
 """The paper's contribution on PyTorch: Bayesian estimation of
 processing-unit models and frontier-optimal workflow partitioning (Chua &
-Huberman 2015).  Counterpart of ``repro.core`` for what the port has so far.
+Huberman 2015).  Counterpart of ``repro.core``; ``ShardingConfig`` splits the
+fleet axis of the estimator across the ranks of a torch ``DeviceMesh``.
 
 The legacy partitioner names (``HeterogeneityAwarePartitioner``,
 ``WorkerTelemetry``, ``optimize_fractions``, ``quantize_fractions``) resolve
@@ -55,6 +56,7 @@ from .posterior import (
     posterior_predictive_logpdf,
     update_normal_gamma,
 )
+from .sharding import ShardingConfig, constrain_fleet, shard_fleet_map
 
 __all__ = [
     "BetaParams",
@@ -62,12 +64,14 @@ __all__ = [
     "GibbsState",
     "HeterogeneityAwarePartitioner",
     "NormalGammaParams",
+    "ShardingConfig",
     "UnitParams",
     "WorkerTelemetry",
     "beta_logpdf",
     "beta_moments",
     "completion_cdf",
     "compression_report",
+    "constrain_fleet",
     "dag_completion_moments",
     "exponent_grid",
     "fit",
@@ -99,6 +103,7 @@ __all__ = [
     "sample_normal",
     "select_active",
     "serial_moments",
+    "shard_fleet_map",
     "surrogate_gap",
     "surrogate_moments",
     "sweep_two_way",

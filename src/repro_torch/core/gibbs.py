@@ -1,8 +1,9 @@
 """Algorithm 1 — Gibbs sampling of (mu, sigma, alpha, beta).
 
-PyTorch counterpart of ``repro.core.gibbs`` (its single-device paths: dense,
-and the compressed active set of ``core.compress``).  Per batch of
-telemetry (T, F) the sampler runs ``n_iters`` sweeps; each sweep
+PyTorch counterpart of ``repro.core.gibbs``: the dense path, the compressed
+active set of ``core.compress``, and the fleet sharded over a mesh
+(``core.sharding``).  Per batch of telemetry (T, F) the sampler runs
+``n_iters`` sweeps; each sweep
 
   - recomputes the Normal-Gamma posterior (Eqs 6-9) at the current
     (alpha, beta) and samples lambda ~ Gamma(nu_N, psi_N),
@@ -31,6 +32,15 @@ from repro_torch.device import resolve_device
 from .distributions import sample_beta, sample_gamma, sample_normal
 from .moments import BetaParams, exponent_grid, update_alpha_beta_params
 from .posterior import NormalGammaParams, log_likelihood, update_normal_gamma
+from repro_torch.sharding import (
+    ShardingConfig,
+    gather_fleet,
+    local_rows,
+    pad_fleet_axis,
+    pad_fleet_mask,
+    tree_map,
+    unpad_fleet_axis,
+)
 
 
 class GibbsState(NamedTuple):
@@ -47,17 +57,6 @@ class GibbsState(NamedTuple):
     @property
     def sigma(self) -> Tensor:
         return torch.sqrt(1.0 / torch.clamp(self.lam, min=1e-30))
-
-
-def tree_map(fn: Callable[[Tensor], Tensor], tree):
-    """Apply ``fn`` to every tensor leaf of a (nested) NamedTuple state."""
-    if isinstance(tree, Tensor):
-        return fn(tree)
-    if tree is None:
-        return None
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, x) for x in tree))
-    raise TypeError(f"unexpected state leaf {type(tree).__name__}")
 
 
 def _mu_scale(kappa: Tensor, lam: Tensor) -> Tensor:
@@ -98,27 +97,54 @@ def _advance(
     n_iters: int,
     grid_size: int,
     chain_priors: bool,
+    sharding: Optional[ShardingConfig] = None,
 ) -> Tuple[GibbsState, Tensor]:
     """One telemetry batch of full Gibbs sweeps (the dense path).
 
     Strictly per-worker: no operation mixes rows of the fleet axis, so a
     gathered slab of rows computes what the same rows compute in the whole
     fleet, given the same draws.
+
+    With ``sharding`` the fleet axis is split across the mesh's ranks: each
+    rank runs the per-worker work on its own block of rows (``own``): the
+    Normal-Gamma update, K1 and the Beta fit.  The draws are made in the
+    global layout: the rank all-gathers (``everyone``) the O(K) posterior
+    parameters, the four Normal-Gamma leaves before lambda and mu are drawn
+    and the four Beta leaves before alpha and beta are, and draws over the
+    whole K from its replicated generator, as the unsharded sweep draws.  So
+    every rank's generator ends where the unsharded call leaves it, every
+    rank holds the same global state, and no two shards share noise.  Two
+    O(K) gathers a sweep; the (K, 2, G) posteriors never cross ranks.  K not
+    dividing the shard count is padded with copies of the last row whose
+    telemetry is masked out, and sliced off each gather.  The mask keeps its
+    last axis: a capacity state's (K, 1) live mask counts as it does
+    unsharded.  Without ``sharding`` both maps are the identity.
     """
+    own = everyone = lambda tree: tree
+    if sharding is not None:
+        k = t.shape[0]
+        pad = sharding.pad(k)
+        mask = (torch.ones_like(t) if mask is None
+                else torch.broadcast_to(mask, (k, mask.shape[-1] if mask.ndim else 1)).to(t.dtype))
+        mask = local_rows(pad_fleet_mask(mask, pad), sharding)
+        own = lambda tree: local_rows(pad_fleet_axis(tree, pad), sharding)
+        everyone = lambda tree: unpad_fleet_axis(gather_fleet(tree, sharding), k)
+    t_l, f_l = own(t), own(f)
+    ng_l, ap_l, bp_l = own(state.ng), own(state.alpha_prior), own(state.beta_prior)
     grid = exponent_grid(grid_size, device=t.device)
     st = state
     ng_post = a_post = b_post = None
     for _ in range(n_iters):
         # -- (mu, lambda) block: conjugate update at current (alpha, beta).
-        ng_post = update_normal_gamma(st.ng, t, f, st.alpha, st.beta, mask)
+        ng_post = everyone(update_normal_gamma(ng_l, t_l, f_l, own(st.alpha), own(st.beta), mask))
         lam = sample_gamma(generator, ng_post.nu0, ng_post.psi0)
         mu = sample_normal(generator, ng_post.mu0, _mu_scale(ng_post.kappa0, lam))
 
         # -- (alpha, beta) block: grid posterior (K1) -> Beta fit -> sample.
-        a_post, b_post = update_alpha_beta_params(
-            grid, t, f, mu, lam, st.alpha, st.beta, st.alpha_prior, st.beta_prior, mask,
+        a_post, b_post = everyone(update_alpha_beta_params(
+            grid, t_l, f_l, own(mu), own(lam), own(st.alpha), own(st.beta), ap_l, bp_l, mask,
             symmetric_grid=True,  # exponent_grid is a symmetric linspace
-        )
+        ))
         alpha = sample_beta(generator, a_post.a, a_post.b)
         beta = sample_beta(generator, b_post.a, b_post.b)
         st = st._replace(mu=mu, lam=lam, alpha=alpha, beta=beta)
@@ -126,7 +152,8 @@ def _advance(
     if chain_priors and n_iters > 0:
         st = st._replace(ng=ng_post, alpha_prior=a_post, beta_prior=b_post)
 
-    ll = log_likelihood(t, f, st.mu, st.lam, st.alpha, st.beta, mask)
+    ll = everyone(log_likelihood(t_l, f_l, own(st.mu), own(st.lam), own(st.alpha), own(st.beta),
+                                 mask))
     return st, ll
 
 
@@ -211,6 +238,7 @@ def gibbs_batch(
     n_iters: int = 20,
     grid_size: int = 512,
     chain_priors: bool = True,
+    sharding: Optional[ShardingConfig] = None,
     active_idx: Optional[Tensor] = None,
 ) -> Tuple[GibbsState, Tensor]:
     """Process one telemetry batch; returns (new_state, log_likelihood).
@@ -226,17 +254,27 @@ def gibbs_batch(
       generator: the chain's random source, on the state's device.
       chain_priors: if True (paper's Algorithm 1), the batch posterior becomes
         the next batch's prior.
+      sharding: optional ``core.sharding.ShardingConfig``: the fleet axis is
+        split across the mesh's ranks, each sweep launching K1 once a rank
+        on that rank's rows (``_advance``).  Every rank passes the
+        same global state and telemetry and gets back the same global
+        result, the unsharded call's chains with its generator left where
+        the unsharded call leaves it.  Single-unit (N,) telemetry ignores it.
       active_idx: optional (M,) int64 tensor of fleet rows (on the state's
         device) to advance through the full grid path; the other K - M
         workers advance through the grid-free compressed surrogate
         (``core.compress``), and each sweep's K1 launch covers the M rows
         only.  Bitwise the dense path at ``active_idx = arange(K)``.
+        Single-device only (the slab gather is a cross-shard operation):
+        combine with ``sharding=None``.
     """
     kw = dict(generator=generator, n_iters=n_iters, grid_size=grid_size,
               chain_priors=chain_priors)
     if active_idx is not None and t.ndim >= 2:
+        if sharding is not None:
+            raise ValueError("active_idx is a single-device path; pass sharding=None")
         return _advance_active(state, t, f, mask, active_idx, **kw)
-    return _advance(state, t, f, mask, **kw)
+    return _advance(state, t, f, mask, sharding=sharding if t.ndim >= 2 else None, **kw)
 
 
 def discount_state(state: GibbsState, rho: float) -> GibbsState:
@@ -329,11 +367,13 @@ def fit_fleet(
     grid_size: int = 512,
     mu_guess=None,
     device=None,
+    sharding: Optional[ShardingConfig] = None,
 ) -> Tuple[GibbsState, Tensor]:
     """Fleet estimation: t, f of shape (K, N) -> per-worker states (K,).
 
     An entry point (see ``fit`` for ``seed`` and ``device``).  Every worker
-    advances in one fleet-native ``gibbs_batch``: one K1 launch per sweep.
+    advances in one fleet-native ``gibbs_batch``: one K1 launch per sweep,
+    or one a rank on its rows with ``sharding`` (the unsharded chains).
     """
     device = resolve_device(device)
     t = _as_tensor(t, device)
@@ -344,7 +384,8 @@ def fit_fleet(
         mu_guess = t.mean(dim=-1) / torch.clamp(f.mean(dim=-1), min=1e-6)
     ng = NormalGammaParams.default(_as_tensor(mu_guess, device), (k,))
     states = init_state(generator, ng=ng, shape=(k,))
-    return gibbs_batch(states, t, f, generator=generator, n_iters=n_iters, grid_size=grid_size)
+    return gibbs_batch(states, t, f, generator=generator, n_iters=n_iters, grid_size=grid_size,
+                       sharding=sharding)
 
 
 def fold_stage_axis(tree):
@@ -369,12 +410,15 @@ def fit_dag(
     grid_size: int = 512,
     mu_guess=None,
     device=None,
+    sharding: Optional[ShardingConfig] = None,
 ) -> Tuple[GibbsState, Tensor]:
     """Stacked stage-fleet estimation: t, f of shape (S, K, N).
 
     The stage axis is folded into the fleet axis, so the whole DAG — every
     stage, every worker, both exponents — is one K1 launch per sweep.
-    Returns states with (S, K) leaves and the (S, K) log-likelihood.
+    ``sharding`` splits the folded S*K axis across the mesh, padding S*K
+    (not K) up to the shard count.  Returns states with (S, K) leaves and
+    the (S, K) log-likelihood.
     """
     device = resolve_device(device)
     t = _as_tensor(t, device)
@@ -388,5 +432,6 @@ def fit_dag(
         grid_size=grid_size,
         mu_guess=None if mu_guess is None else _as_tensor(mu_guess, device).reshape(s * k),
         device=device,
+        sharding=sharding,
     )
     return unfold_stage_axis(states, s), ll.reshape(s, k)

@@ -2,8 +2,18 @@
 feeds the partitioned-serving driver, and, as submodules as in the
 reference, ``fault_tolerance`` (heartbeats, Bayesian straggler detection,
 elastic resize around a ``sched.Scheduler``) and ``compression`` (int8 and
-top-k gradient compression with error feedback).  The reference's sharding
-comes with ROADMAP item 10."""
+top-k gradient compression with error feedback).
+
+Two sharding concerns are easy to conflate.  Estimator fleet sharding
+(``repro_torch.core.sharding``, re-exported here as :class:`ShardingConfig`)
+splits the Bayesian estimator's worker axis K across the ranks of a
+``workers`` ``DeviceMesh``: thread it through
+``sched.SchedulerConfig(mesh=...)`` or ``core.gibbs.*(sharding=...)``.
+Model-tensor sharding (the reference's ``repro.distributed.sharding``, the
+model stack's mesh rules) is not ported yet.
+"""
+from repro_torch.sharding import ShardingConfig
+
 from .simulated_cluster import SimulatedCluster, WorkerSpec
 
-__all__ = ["SimulatedCluster", "WorkerSpec"]
+__all__ = ["ShardingConfig", "SimulatedCluster", "WorkerSpec"]

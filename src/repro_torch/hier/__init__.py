@@ -1,6 +1,6 @@
 """Fleet hyperprior on PyTorch: hierarchical empirical-Bayes pooling across
-workers.  Counterpart of ``repro.hier`` without the mesh-sharded refit
-(ROADMAP item 10).
+workers.  Counterpart of ``repro.hier``, the refit over a fleet mesh
+(:func:`fit_hyperprior_sharded`) included.
 
 :func:`fit_hyperprior` pools the per-worker posteriors into fleet-level
 hyperparameters, :func:`shrink` blends cold workers toward the fleet mean
@@ -14,6 +14,7 @@ from .hyperprior import (
     HyperStats,
     effective_sample_size,
     fit_hyperprior,
+    fit_hyperprior_sharded,
     hyper_from_stats,
     hyper_init,
     hyper_stats,
@@ -29,6 +30,7 @@ __all__ = [
     "HyperStats",
     "effective_sample_size",
     "fit_hyperprior",
+    "fit_hyperprior_sharded",
     "hyper_from_stats",
     "hyper_init",
     "hyper_stats",

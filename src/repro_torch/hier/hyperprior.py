@@ -1,16 +1,18 @@
 """Empirical-Bayes fleet hyperprior: cold-start, transfer, drift scoring.
 
-PyTorch counterpart of ``repro.hier.hyperprior`` (its single-device part).
-The paper infers each processing unit independently, so a worker that joins
-the fleet starts from the vague global prior and spends its first
-observations re-learning what the fleet already knows.  This module pools
+PyTorch counterpart of ``repro.hier.hyperprior``.  The paper infers each
+processing unit independently, so a worker that joins the fleet starts from
+the vague global prior and spends its first observations re-learning what
+the fleet already knows.  This module pools
 strength across the fleet without touching the per-worker estimator:
 
   * :func:`fit_hyperprior` — fleet-level hyperparameters moment-matched from
     the per-worker posteriors: a pooled Normal-Gamma over each worker's
     (mu, lambda) and pooled Beta summaries of the exponent posteriors.  The
     refit is a per-worker map and a sum over the fleet (13 scalars,
-    :func:`hyper_stats`), then :func:`hyper_from_stats`.
+    :func:`hyper_stats`), then :func:`hyper_from_stats`; over a mesh
+    (:func:`fit_hyperprior_sharded`) each rank sums its own rows and one
+    ``all_reduce`` adds the 13 scalars.
   * :func:`shrink` — blend each worker toward the fleet prior with weight
     ``w = tau / (tau + ess)``: a cold worker (ess 0) lands on the pool, a
     mature one keeps its own data, weight 0 is a bitwise no-op.
@@ -18,15 +20,16 @@ strength across the fleet without touching the per-worker estimator:
     parameters and the worker's under the pooled prior: the drift statistic
     behind the serve gate, whose null level does not grow with K.
 
-Left out: the reference's ``fit_hyperprior_sharded`` and the ``sharding=`` /
-``axis_name`` arguments, which need a device mesh (``shard_map``/``psum``);
-they come with the sharded paths (ROADMAP item 10).
+``shrink`` and ``surprise`` are strictly per-worker, so with ``sharding``
+each rank computes its own rows (``repro_torch.sharding.shard_fleet_call``) and the
+rows are all-gathered; only the O(1) hyperprior is replicated.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
 from repro_torch.core.distributions import (
@@ -39,6 +42,13 @@ from repro_torch.core.distributions import (
 from repro_torch.core.gibbs import GibbsState, init_state
 from repro_torch.core.moments import BetaParams
 from repro_torch.core.posterior import NormalGammaParams
+from repro_torch.sharding import (
+    ShardingConfig,
+    local_rows,
+    pad_fleet_axis,
+    pad_fleet_mask,
+    shard_fleet_call,
+)
 
 # The Normal-Gamma pseudo-count every per-worker chain starts from: nu0 = 1.
 # Effective sample size counts observations accumulated past it.
@@ -155,11 +165,40 @@ def hyper_from_stats(stats: HyperStats) -> Hyperprior:
     )
 
 
-def fit_hyperprior(fleet: GibbsState, mask: Optional[Tensor] = None) -> Hyperprior:
+def fit_hyperprior(fleet: GibbsState, mask: Optional[Tensor] = None, group=None) -> Hyperprior:
     """Empirical-Bayes refit of the fleet hyperprior from per-worker
     posteriors (the ``gibbs`` leaf of a ``SchedulerState``).  Runs on the
-    fleet's device with no host sync."""
-    return hyper_from_stats(hyper_stats(fleet, mask))
+    fleet's device with no host sync.
+
+    With ``group`` (a process group, each rank holding its own workers) the
+    13 sufficient statistics are summed over the group's ranks with one
+    ``all_reduce``, the reference's ``psum`` over ``axis_name``; every rank
+    then returns the same hyperprior (:func:`fit_hyperprior_sharded`).
+    """
+    stats = hyper_stats(fleet, mask)
+    if group is not None:
+        flat = torch.stack(tuple(stats))
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        stats = HyperStats(*flat.unbind(0))
+    return hyper_from_stats(stats)
+
+
+def fit_hyperprior_sharded(
+    fleet: GibbsState, sharding: ShardingConfig, mask: Optional[Tensor] = None
+) -> Hyperprior:
+    """The refit over the fleet mesh: each rank reduces its K_pad / n
+    workers to 13 scalars, one ``all_reduce`` adds them, and every rank
+    returns the same hyperprior.  K not dividing the shard count is padded
+    with mask-0 dummy workers, which add nothing to any statistic.  The sum
+    runs in another order than :func:`fit_hyperprior`'s, so the two agree to
+    float32 rounding, not bit for bit."""
+    k = fleet.ng.mu0.shape[0]
+    m = (torch.ones((k,), dtype=torch.float32, device=fleet.ng.mu0.device) if mask is None
+         else torch.broadcast_to(torch.as_tensor(mask, device=fleet.ng.mu0.device), (k,))
+         .to(torch.float32))
+    pad = sharding.pad(k)
+    return fit_hyperprior(local_rows(pad_fleet_axis(fleet, pad), sharding),
+                          local_rows(pad_fleet_mask(m, pad), sharding), group=sharding.group)
 
 
 # --------------------------------------------------------------------------
@@ -182,28 +221,8 @@ def _log_blend(own: Tensor, pool: Tensor, w: Tensor) -> Tensor:
                      + w * torch.log(torch.clamp(pool, min=TINY)))
 
 
-def shrink(
-    fleet: GibbsState,
-    hyper: Hyperprior,
-    weight=None,
-    *,
-    strength: float = DEFAULT_STRENGTH,
-) -> GibbsState:
-    """Blend each worker's posterior toward the fleet prior.
-
-    ``weight`` (scalar or (K,)) overrides the rule ``w = strength /
-    (strength + ess)``.  ``weight=0`` is a bitwise no-op on every leaf, a
-    cold worker (ess 0) lands on the hyperprior, a mature worker barely
-    moves.  The chain's current samples are pulled along with its prior,
-    since they weight the next sweep's Normal-Gamma update.
-    """
-    if weight is None:
-        w = shrinkage_weight(fleet, strength)
-    else:
-        w = torch.broadcast_to(
-            torch.as_tensor(weight, dtype=torch.float32, device=fleet.ng.mu0.device),
-            fleet.ng.mu0.shape,
-        )
+def _shrink_body(fleet: GibbsState, hyper: Hyperprior, w: Tensor) -> GibbsState:
+    """Blend the workers of ``fleet`` toward the (replicated) fleet prior."""
     guard = lambda own, blended: torch.where(w > 0.0, blended, own)
     ng, h = fleet.ng, hyper.ng
     new_ng = NormalGammaParams(
@@ -232,6 +251,36 @@ def shrink(
     )
 
 
+def shrink(
+    fleet: GibbsState,
+    hyper: Hyperprior,
+    weight=None,
+    *,
+    strength: float = DEFAULT_STRENGTH,
+    sharding: Optional[ShardingConfig] = None,
+) -> GibbsState:
+    """Blend each worker's posterior toward the fleet prior.
+
+    ``weight`` (scalar or (K,)) overrides the rule ``w = strength /
+    (strength + ess)``.  ``weight=0`` is a bitwise no-op on every leaf, a
+    cold worker (ess 0) lands on the hyperprior, a mature worker barely
+    moves.  The chain's current samples are pulled along with its prior,
+    since they weight the next sweep's Normal-Gamma update.  The blend is
+    per-worker, so with ``sharding`` each rank blends its own rows and the
+    rows are all-gathered.
+    """
+    if weight is None:
+        w = shrinkage_weight(fleet, strength)
+    else:
+        w = torch.broadcast_to(
+            torch.as_tensor(weight, dtype=torch.float32, device=fleet.ng.mu0.device),
+            fleet.ng.mu0.shape,
+        )
+    if sharding is None or fleet.ng.mu0.ndim == 0:
+        return _shrink_body(fleet, hyper, w)
+    return shard_fleet_call(lambda fl, ww: _shrink_body(fl, hyper, ww), sharding, (fleet, w))
+
+
 # --------------------------------------------------------------------------
 # surprise
 # --------------------------------------------------------------------------
@@ -248,16 +297,7 @@ def _hyper_logpdf(hyper: Hyperprior, mu: Tensor, lam: Tensor, alpha: Tensor,
     )
 
 
-def surprise(fleet: GibbsState, hyper: Hyperprior) -> Tensor:
-    """Per-worker drift score against the pooled prior; (K,), on the device.
-
-    ``log p(theta_typical | hyper) - log p(theta_k | hyper)`` with theta_k
-    worker k's posterior point estimates and theta_typical the hyperprior's
-    own means: ~0 for a worker the pool explains, growing as its posterior
-    escapes the pool.  Its null distribution does not depend on K, so one
-    online-calibrated gate serves any fleet size (``repro_torch.serve.gate``).
-    (The reference's ``_surprise_body``, its unjitted form, is this too.)
-    """
+def _surprise_body(fleet: GibbsState, hyper: Hyperprior) -> Tensor:
     lam_k = fleet.ng.nu0 / torch.clamp(fleet.ng.psi0, min=TINY)
     a_k, _ = _beta_mean_var(fleet.alpha_prior)
     b_k, _ = _beta_mean_var(fleet.beta_prior)
@@ -269,6 +309,24 @@ def surprise(fleet: GibbsState, hyper: Hyperprior) -> Tensor:
     b_t, _ = _beta_mean_var(hyper.beta_prior)
     logp_t = _hyper_logpdf(hyper, hyper.ng.mu0, lam_t, a_t, b_t)
     return (logp_t - logp_k).to(torch.float32)
+
+
+def surprise(
+    fleet: GibbsState, hyper: Hyperprior, *, sharding: Optional[ShardingConfig] = None
+) -> Tensor:
+    """Per-worker drift score against the pooled prior; (K,), on the device.
+
+    ``log p(theta_typical | hyper) - log p(theta_k | hyper)`` with theta_k
+    worker k's posterior point estimates and theta_typical the hyperprior's
+    own means: ~0 for a worker the pool explains, growing as its posterior
+    escapes the pool.  Its null distribution does not depend on K, so one
+    online-calibrated gate serves any fleet size (``repro_torch.serve.gate``).
+    Strictly per-worker: with ``sharding`` each rank scores its own rows and
+    the scores are all-gathered.
+    """
+    if sharding is None or fleet.ng.mu0.ndim == 0:
+        return _surprise_body(fleet, hyper)
+    return shard_fleet_call(lambda fl: _surprise_body(fl, hyper), sharding, (fleet,))
 
 
 # --------------------------------------------------------------------------

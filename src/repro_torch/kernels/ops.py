@@ -10,6 +10,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from repro_torch.sharding import shard_fleet_call
+
 from .decode_attention import decode_attention as _decode_attention
 from .lru_scan import lru_scan as _lru_scan
 from .posterior_grid import posterior_grid_fleet as _posterior_grid_fleet
@@ -28,6 +30,7 @@ def posterior_grid_fleet(
     mask: Optional[Tensor] = None,
     *,
     symmetric_grid: bool = False,
+    sharding=None,
     active_idx: Optional[Tensor] = None,
     out_prev: Optional[Tensor] = None,
 ) -> Tensor:
@@ -48,10 +51,19 @@ def posterior_grid_fleet(
     ``out_prev``, a (K, 2, G) grid cache, or into zeros when there is none.
     Rows outside ``active_idx`` keep ``out_prev``'s values, and at
     ``active_idx = arange(K)`` the result is bitwise the dense launch's.
+    Single-device only (the gather is a cross-shard operation): combine it
+    with ``sharding=None``.
+
+    ``sharding`` (a ``repro_torch.sharding.ShardingConfig``) splits the
+    (folded) fleet axis across the mesh's ranks: each rank launches K1 once
+    on its K_pad / n rows, the pad rows masked out, and the (K, 2, G)
+    output is all-gathered, so every rank returns the whole of it.
     """
     if mask is None:
         mask = torch.ones_like(t)
     if active_idx is not None and t.ndim == 2:
+        if sharding is not None:
+            raise ValueError("active_idx is a single-device path; pass sharding=None")
         k = t.shape[0]
         take_kn = lambda x: torch.broadcast_to(x, t.shape).index_select(0, active_idx)
         take_k = lambda x: torch.broadcast_to(
@@ -74,13 +86,17 @@ def posterior_grid_fleet(
     flat_k = lambda x: torch.broadcast_to(
         torch.as_tensor(x, dtype=torch.float32, device=t.device), lead
     ).reshape(-1)
-    out = _posterior_grid_fleet(
-        grid, flat_kn(t), flat_kn(f), flat_kn(mask),
+    args = (
+        flat_kn(t), flat_kn(f), flat_kn(mask),
         flat_k(mu), flat_k(lam), flat_k(alpha), flat_k(beta),
         flat_k(alpha_prior.a), flat_k(alpha_prior.b),
         flat_k(beta_prior.a), flat_k(beta_prior.b),
-        symmetric_grid=symmetric_grid,
     )
+    launch = lambda *a: _posterior_grid_fleet(grid, *a, symmetric_grid=symmetric_grid)
+    if sharding is None:
+        out = launch(*args)
+    else:
+        out = shard_fleet_call(launch, sharding, args, mask_index=2)
     return out.reshape(*lead, *out.shape[1:])
 
 

@@ -56,7 +56,7 @@ MIXERS = {
 REMATS = ("none", "full", "dots", "outs")
 # "outs" keeps the tensors of these names, the reference's
 # save_only_these_names; moe_recv and moe_back are set on the expert-parallel
-# path only, which the port does not have yet (ROADMAP item 10)
+# path only, which the port does not have yet (ROADMAP item 10b)
 SAVED_NAMES = ("attn_out", "mlp_out", "moe_recv", "moe_back")
 
 

@@ -1,6 +1,7 @@
 """Online scheduler on PyTorch: learn from telemetry, propose a split,
 quantize it, score anomalies, admit and retire workers.  Counterpart of
-``repro.sched`` on one device (the mesh paths come later).
+``repro.sched``; ``SchedulerConfig(mesh=ShardingConfig(...))`` splits the
+fleet axis across the ranks of a torch ``DeviceMesh``.
 
 Multi-stage pipelines lift the same API to workflow DAGs (``sched.dag``):
 
@@ -16,6 +17,8 @@ The legacy partitioner API (``HeterogeneityAwarePartitioner``,
 ``quantize_fractions``) is the submodule ``sched.compat``, as in the
 reference; its names are not exported here.
 """
+from repro_torch.sharding import ShardingConfig
+
 from .dag import (
     DagProposeStats,
     DagState,
@@ -63,6 +66,7 @@ __all__ = [
     "Scheduler",
     "SchedulerConfig",
     "SchedulerState",
+    "ShardingConfig",
     "Telemetry",
     "WorkflowDAG",
     "add_workers",

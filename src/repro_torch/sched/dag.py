@@ -340,7 +340,9 @@ def observe_dag(
     optionally invalidates telemetry elements (broadcastable to the times);
     a ``dag`` with ``stage_workers`` also masks every dead column, so
     whatever a padded column carries leaves its parked posterior exactly as
-    it was.  Returns the (S, K) log-likelihood.
+    it was.  With ``config.mesh`` the folded S*K axis is split across the
+    mesh's ranks; it is S*K, not K, that is padded up to a multiple of the
+    shard count.  Returns the (S, K) log-likelihood.
     """
     times = telemetry.times
     s = times.shape[0]

@@ -1,6 +1,6 @@
 """Online Bayesian scheduler: state in, state out.
 
-PyTorch counterpart of ``repro.sched.scheduler`` (its single-device paths):
+PyTorch counterpart of ``repro.sched.scheduler``:
 
     init(config, num_workers, seed, device, capacity) -> state
     observe(state, telemetry, config)                 -> (state, ll)
@@ -21,6 +21,12 @@ carries a ``live`` mask over fixed slots: ``admit_workers`` and
 ``remove_workers`` change the fleet's size.  ``Scheduler`` is the
 imperative shell over all of it.
 
+``SchedulerConfig(mesh=...)`` splits the fleet axis across the ranks of a
+``workers`` mesh (``repro_torch.core.sharding``): ``observe`` advances each
+rank's rows and all-gathers them, and the hierarchical refits sum their
+statistics over the ranks.  Every rank holds the same global state, the one
+the unsharded scheduler holds, generator included.
+
 ``solve_fractions`` (i) starts from the makespan-equalizing split solved by
 bisection with the current alpha estimates, (ii) refines by Adam on logits,
 and (iii) keeps whichever of {refined, equalizing, uniform} scores best, so
@@ -38,6 +44,7 @@ from torch import Tensor
 from repro_torch.core import gibbs
 from repro_torch.core.frontier import UnitParams, mean_var_completion
 from repro_torch.core.posterior import posterior_predictive_logpdf
+from repro_torch.sharding import ShardingConfig
 from repro_torch.device import resolve_device
 
 from .objectives import Objective, evaluate
@@ -78,6 +85,9 @@ class SchedulerConfig:
     objective: Objective = Objective()
     n_iters: int = 20  # Gibbs sweeps per telemetry batch
     grid_size: int = 256  # exponent-posterior grid resolution
+    mesh: Optional[ShardingConfig] = None  # split the fleet axis across a
+    # mesh's ranks (observe / observe_dag, the hierarchical refits); None =
+    # single device.  A bare 1-D DeviceMesh is wrapped (axis "workers").
     discount: float = 0.9  # power-prior forgetting factor
     mu_guess: float = 1.0  # prior center for per-unit mean time
     ewma: float = 0.8  # anomaly-score smoothing
@@ -90,6 +100,10 @@ class SchedulerConfig:
     # serve loop's drift gate scores per-worker surprise against it
     hyper_strength: float = 8.0  # fleet-prior pseudo-observations (shrink)
     hyper_refit_every: int = 4  # drains between hyperprior refits (serve)
+
+    def __post_init__(self):
+        if self.mesh is not None and not isinstance(self.mesh, ShardingConfig):
+            object.__setattr__(self, "mesh", ShardingConfig(mesh=self.mesh))
 
 
 def init(
@@ -143,6 +157,8 @@ def advance_fleet(
     pairs with the grid re-fit that re-tightens them, so surrogate workers
     skip both: their Beta fit neither widens nor re-learns until they enter
     the active set again.  The Normal-Gamma block discounts for every worker.
+    ``config.mesh`` shards the advance (``gibbs_batch(sharding=)``) unless
+    ``active_idx`` is given: the active set is a single-device path.
     """
     discounted = gibbs.discount_state(fleet, config.discount)
     if active_idx is not None and times.ndim >= 2:
@@ -157,7 +173,7 @@ def advance_fleet(
     return gibbs.gibbs_batch(
         discounted, times, fracs, mask,
         generator=generator, n_iters=config.n_iters, grid_size=config.grid_size,
-        active_idx=active_idx,
+        sharding=None if active_idx is not None else config.mesh, active_idx=active_idx,
     )
 
 
@@ -431,6 +447,16 @@ def capacity(state: SchedulerState) -> int:
     return int(state.ewma_ll.shape[0])
 
 
+def _refit_hyperprior(fleet: gibbs.GibbsState, config: SchedulerConfig, mask=None):
+    """The fleet hyperprior pooled from ``fleet``: over the mesh's ranks
+    when ``config.mesh`` is set."""
+    from repro_torch import hier
+
+    if config.mesh is not None:
+        return hier.fit_hyperprior_sharded(fleet, config.mesh, mask)
+    return hier.fit_hyperprior(fleet, mask)
+
+
 def _fresh_workers(state: SchedulerState, count: int, config: SchedulerConfig,
                    generator: torch.Generator, hyper=None, mu_guess=None) -> gibbs.GibbsState:
     """``count`` newly born per-worker states: from the fleet hyperprior
@@ -440,7 +466,7 @@ def _fresh_workers(state: SchedulerState, count: int, config: SchedulerConfig,
         from repro_torch import hier
 
         if hyper is None:
-            hyper = hier.fit_hyperprior(state.gibbs, state.live)
+            hyper = _refit_hyperprior(state.gibbs, config, state.live)
         return hier.init_from_hyperprior(generator, count, hyper)
     guess = config.mu_guess if mu_guess is None else mu_guess
     return gibbs.init_state(generator, mu_guess=guess, shape=(count,))
@@ -560,9 +586,7 @@ def add_workers(
     generator = (state.generator if seed is None
                  else torch.Generator(device=device).manual_seed(int(seed)))
     if config.hierarchical and hyper is None:
-        from repro_torch import hier
-
-        hyper = hier.fit_hyperprior(state.gibbs)
+        hyper = _refit_hyperprior(state.gibbs, config)
     fresh = _fresh_workers(state, count, config, generator, hyper=hyper, mu_guess=mu_guess)
     zeros = lambda like: torch.zeros((count,), dtype=like.dtype, device=like.device)
     return state._replace(
@@ -670,9 +694,7 @@ class Scheduler:
     # -- hierarchical pooling (repro_torch.hier) ---------------------------
     def fit_hyperprior(self):
         """Pool the current per-worker posteriors into a fleet hyperprior."""
-        from repro_torch import hier
-
-        return hier.fit_hyperprior(self.state.gibbs)
+        return _refit_hyperprior(self.state.gibbs, self.config)
 
     def shrink(self, hyper=None) -> None:
         """Blend cold workers toward the fleet prior (ESS-weighted)."""
@@ -680,7 +702,8 @@ class Scheduler:
 
         hyper = hyper if hyper is not None else self.fit_hyperprior()
         self.state = self.state._replace(
-            gibbs=hier.shrink(self.state.gibbs, hyper, strength=self.config.hyper_strength)
+            gibbs=hier.shrink(self.state.gibbs, hyper, strength=self.config.hyper_strength,
+                              sharding=self.config.mesh)
         )
 
     def surprise(self, hyper=None) -> np.ndarray:
@@ -688,7 +711,7 @@ class Scheduler:
         from repro_torch import hier
 
         hyper = hyper if hyper is not None else self.fit_hyperprior()
-        return hier.surprise(self.state.gibbs, hyper).cpu().numpy()
+        return hier.surprise(self.state.gibbs, hyper, sharding=self.config.mesh).cpu().numpy()
 
     # -- elastic membership ------------------------------------------------
     @property

@@ -71,7 +71,7 @@ class Trainer:
         the reference's trainer keeps them; that setting is read by the dry
         run alone (ROADMAP item 13)."""
         if mesh_info is not None:
-            raise NotImplementedError("mesh_info: the sharded model stack is ROADMAP item 10")
+            raise NotImplementedError("mesh_info: the sharded model stack is ROADMAP item 10b")
         self.device = resolve_device(device)
         self.run = run
         self.cfg = run.model
