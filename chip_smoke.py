@@ -714,15 +714,21 @@ def phase_k3_backward_parity():
     """K3's backward (``lru_scan_bwd``, through ``LruScan``) against
     ``torch.autograd.grad`` through ``lru_scan_plain`` with the same dy, at
     phase 3's K3 cases in both types (ragged T, R of 300 and 64, a last
-    chunk of one step, decays near 1, rows not 16-byte aligned) and at the
-    training path's (2, 512, 2560), h0 != 0 and requiring a gradient.  Each
-    of da, db and dh0 is held within 1e-5 (bfloat16: 4e-2) of its largest
-    entry: the kernel sums g in order and the plain version's autograd in a
-    log-depth order, and with decays near 1 an entry of da near 0 is a
-    difference of terms ~100.  Every case synchronises under a host-side
-    timeout; then two backward calls are bitwise equal.  Returns max |err|."""
+    chunk of one step, decays near 1, rows not 16-byte aligned), at the
+    edges of the backward's own chunk (``BWD_CHUNK`` less or more one step,
+    two chunks and one step) and at the training path's (2, 512, 2560), h0
+    != 0 and requiring a gradient; then with h alone not 16-byte aligned
+    (``lru_scan_bwd_cuda`` on the forward's output copied off the boundary,
+    its da and db against ``lru_scan_backward_plain``'s; T >= 2, so the
+    kernel reads h).  Each of da, db and dh0 is held
+    within 1e-5 (bfloat16: 4e-2) of its largest entry: the kernel sums g in
+    order and the plain version's autograd in a log-depth order, and with
+    decays near 1 an entry of da near 0 is a difference of terms ~100.
+    Every case synchronises under a host-side timeout; then two backward
+    calls are bitwise equal.  Returns max |err|."""
     import torch
-    from repro_torch.kernels.lru_scan import CHUNK, lru_scan, lru_scan_bwd_cuda, lru_scan_plain
+    from repro_torch.kernels.lru_scan import (BWD_CHUNK, CHUNK, lru_scan, lru_scan_backward_plain,
+                                              lru_scan_bwd_cuda, lru_scan_plain)
 
     f32, bf16 = torch.float32, torch.bfloat16
     tol = {f32: 1e-5, bf16: 4e-2}
@@ -731,9 +737,13 @@ def phase_k3_backward_parity():
     for dt in (f32, bf16):
         cases += [((1, 1, 2560), dt, False), ((2, CHUNK - 1, 300), dt, False),
                   ((2, CHUNK + 1, 2560), dt, False), ((4, 4097, 2560), dt, False),
-                  ((4, 4097, 2560), dt, True), ((2, 513, 300), dt, True)]
+                  ((4, 4097, 2560), dt, True), ((2, 513, 300), dt, True),
+                  ((2, BWD_CHUNK - 1, 300), dt, False), ((2, BWD_CHUNK + 1, 300), dt, True),
+                  ((3, 2 * BWD_CHUNK + 1, 2560), dt, True)]
     cases += [(K3_PATH, f32, True), (K3_TRAIN, f32, False), (K3_TRAIN, f32, True),
-              (K3_TRAIN, f32, "misaligned"), ((2, 513, 300), bf16, "misaligned")]
+              (K3_TRAIN, f32, "misaligned"), ((2, 513, 300), bf16, "misaligned"),
+              (K3_TRAIN, f32, "h misaligned"), ((2, BWD_CHUNK + 1, 2560), bf16, "h misaligned"),
+              ((1, BWD_CHUNK + 1, 2560), f32, "h misaligned")]
     worst = 0.0
     for i, (shape, dt, near_one) in enumerate(cases):
         a, x, h0 = scan_case(*shape, seed=500 + i, dtype=dt, near_one=bool(near_one))
@@ -741,9 +751,15 @@ def phase_k3_backward_parity():
                          device="cuda").to(dt)
         if near_one == "misaligned":
             a, x, dy = misaligned(a), misaligned(x), misaligned(dy)
-        got = scan_grads(lru_scan, a, x, h0, dy)
-        sync_within(60, f"K3's backward at {shape}")
-        want = scan_grads(lru_scan_plain, a, x, h0, dy)
+        if near_one == "h misaligned":
+            h = misaligned(lru_scan(a, x, h0))
+            got = lru_scan_bwd_cuda(a, h, h0, dy)
+            sync_within(60, f"K3's backward at {shape}")
+            want = lru_scan_backward_plain(a, h, h0, dy)[:2]
+        else:
+            got = scan_grads(lru_scan, a, x, h0, dy)
+            sync_within(60, f"K3's backward at {shape}")
+            want = scan_grads(lru_scan_plain, a, x, h0, dy)
         rels = []
         for name, g, w in zip(("da", "db", "dh0"), got, want):
             err, scale = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
@@ -755,8 +771,11 @@ def phase_k3_backward_parity():
         decays = "a in [0.9, 0.9999)" if near_one else "a = sigmoid(N(0, 1))"
         if near_one == "misaligned":
             decays += ", rows not 16-byte aligned"
-        say(f"[k3-bwd-parity] (B, T, R)={shape} {dt} {decays}: da, db, dh0 max|err| over their "
-            f"largest entry {rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e} within {tol[dt]:g}")
+        if near_one == "h misaligned":
+            decays += ", h alone not 16-byte aligned"
+        names = ", ".join(("da", "db", "dh0")[:len(rels)])
+        say(f"[k3-bwd-parity] (B, T, R)={shape} {dt} {decays}: {names} max|err| over their "
+            f"largest entry {', '.join(f'{x:.3e}' for x in rels)} within {tol[dt]:g}")
     a, x, h0 = scan_case(*K3_TRAIN, seed=650, dtype=f32, near_one=True)
     h = lru_scan(a, x, h0)
     dy = torch.randn(K3_TRAIN, generator=torch.Generator("cuda").manual_seed(651), device="cuda")
@@ -764,7 +783,22 @@ def phase_k3_backward_parity():
     sync_within(60, "K3's backward, repeated")
     if not all(torch.equal(u, v) for u, v in zip(once, again)):
         raise AssertionError("K3's backward: two calls on the same inputs differ")
-    say(f"[k3-bwd-parity] (B, T, R)={K3_TRAIN} float32 a in [0.9, 0.9999): two calls bitwise equal")
+    # the workspace is cleared on the stream: replays of a captured call agree
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lru_scan_bwd_cuda(a, h, h0, dy)  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = lru_scan_bwd_cuda(a, h, h0, dy)
+    for replay in range(3):
+        graph.replay()
+        sync_within(60, "K3's backward, replayed")
+        if not all(torch.equal(u, v) for u, v in zip(replayed, once)):
+            raise AssertionError(f"K3's backward: graph replay {replay} differs from the eager call")
+    say(f"[k3-bwd-parity] (B, T, R)={K3_TRAIN} float32 a in [0.9, 0.9999): two calls bitwise "
+        f"equal, 3 graph replays bitwise equal to the eager call")
     return worst
 
 
@@ -841,7 +875,55 @@ def phase_k1_timing():
         f"bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes), "
         f"special-function floor {sfu_ms:.4f} ms ({k * g * n:.3e} exp2 on {sms} SMs x 16 "
         f"at {clock / 1e9:.3f} GHz); no single library call computes this function")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                slices=phase_k1_slices(args))
+
+
+def phase_k1_slices(args):
+    """K1' (``posterior_grid_pallas``): ``kernels.ops.posterior_grid_alpha``
+    and ``posterior_grid_beta`` on phase 4's inputs, each held against its
+    row of the plain version within K1's tolerance, then timed as phase 4
+    times K1.  Each is one launch of K1's general mode, which computes both
+    rows and keeps one; the bound is that of the one row the function
+    returns."""
+    import torch
+    from repro_torch.core.moments import BetaParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.posterior_grid import posterior_grid_plain
+
+    grid, t, f, mask, mu, lam, alpha, beta, pa_a, pa_b, pb_a, pb_b = args
+    (k, n), g = t.shape, grid.shape[0]
+    half, two = torch.full_like(mu, 0.5), torch.full_like(mu, 2.0)
+    # Float32 operations per (k, g, n) cell of one row: g * log2 f, the
+    # exp2 and pg * pg, then the alpha row's two fused multiply-adds (two
+    # each), 7, or the beta row's reciprocal and one, 6.  Bytes: t, f, mask,
+    # the row's five per-worker scalars and the grid read once, (K, G) written.
+    nbytes = 4.0 * (3 * k * n + 5 * k + g + k * g)
+    calls = dict(
+        posterior_grid_alpha=(7.0, lambda: ops.posterior_grid_alpha(
+            grid, t, f, mu, lam, beta, BetaParams(pa_a, pa_b), mask),
+            lambda: posterior_grid_plain(grid, t, f, mask, mu, lam, half, beta, pa_a, pa_b,
+                                         two, two)[:, 0]),
+        posterior_grid_beta=(6.0, lambda: ops.posterior_grid_beta(
+            grid, t, f, mu, lam, alpha, BetaParams(pb_a, pb_b), mask),
+            lambda: posterior_grid_plain(grid, t, f, mask, mu, lam, alpha, half, two, two,
+                                         pb_a, pb_b)[:, 1]),
+    )
+    out = {}
+    for name, (ops_each, fn, plain) in calls.items():
+        err, rel = assert_logp_close(fn(), plain())
+        ms = time_cuda(fn, runs=30)
+        plain_ms = time_cuda(plain, runs=5, reps=3)
+        ops_n = ops_each * k * g * n
+        bound_ms, bound_by = bound(ops_n, nbytes, PEAK_F32_FLOPS)
+        say(f"[k1-time] {name} (K1', K1's general mode, both rows computed, one kept) K={k} "
+            f"G={g} N={n}: max|err| {err:.3e} (over its row's 1 + max|logp| {rel:.3e}, rtol "
+            f"{RTOL:g}); kernel {ms:.4f} ms ({100 * bound_ms / ms:.1f} % of its row's bound), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({ops_n:.3e} ops, "
+            f"{nbytes:.3e} bytes)")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, max_abs_err=err)
+    return out
 
 
 def round_robin(fn, cases):
@@ -950,16 +1032,23 @@ def scan_sets(shape, seed=70, n_sets=None):
     return sets
 
 
+def k3_bound(shape, reads, writes, ops_each):
+    """(ms, which binds, operations, bytes) of a K3 entry point at ``shape``
+    that reads ``reads`` and writes ``writes`` (B, T, R) float32 tensors,
+    reads h0 once and does ``ops_each`` operations an element."""
+    b, t, r = shape
+    ops = float(ops_each) * b * t * r
+    nbytes = 4.0 * ((reads + writes) * b * t * r + b * r)
+    return (*bound(ops, nbytes, PEAK_F32_FLOPS), ops, nbytes)
+
+
 def k3_timing(shape, sets, fn, plain, tag, reads, writes, ops_each):
     """One K3 entry point at ``shape`` over ``sets``: its time, its plain
     version's and its bound: ``reads`` and ``writes`` (B, T, R) float32
     tensors and h0 read once, ``ops_each`` operations an element."""
-    b, t, r = shape
     ms = time_cuda(round_robin(fn, sets), runs=20)
     plain_ms = time_cuda(round_robin(plain, sets), runs=5, reps=3)
-    ops = float(ops_each) * b * t * r
-    nbytes = 4.0 * ((reads + writes) * b * t * r + b * r)
-    bound_ms, bound_by = bound(ops, nbytes, PEAK_F32_FLOPS)
+    bound_ms, bound_by, ops, nbytes = k3_bound(shape, reads, writes, ops_each)
     say(f"[{tag}] (B, T, R)={shape} float32 ({len(sets)} input sets): kernel {ms:.4f} ms "
         f"({100 * bound_ms / ms:.1f} % of the bound), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms by {bound_by} ({ops:.3e} ops, {nbytes:.3e} bytes)")
@@ -1517,6 +1606,19 @@ def check_capacity(device, live_k=4096):
     say(f"[service] (f) capacity {cap}: admit {n} -> observe -> propose -> retire {n} -> "
         f"propose with no sync; {int((~live).sum())} dead slots get exactly 0 of the proposal and of "
         f"{total} quantized microbatches")
+    # Fault 3f: with every slot live, one batch of N = 16 counts N a worker,
+    # as the exact-size state does: nu0 = discount x 1 + N / 2.
+    f = 0.05 + 0.9 * torch.rand((live_k, 16), generator=gen, device=device)
+    telem = sched.Telemetry(fracs=f, times=f**0.9 * torch.linspace(5.0, 40.0, live_k, device=device)[:, None])
+    nu = {tag: sched.observe(sched.init(config, live_k, seed=7, device=device, capacity=c), telem,
+                             config)[0].gibbs.ng.nu0 for tag, c in (("capacity", live_k), ("exact", None))}
+    if not torch.allclose(nu["capacity"], nu["exact"], rtol=1e-6, atol=0.0):
+        raise AssertionError(f"fault 3f: a capacity state's nu0 {nu['capacity'][:4].tolist()} is "
+                             f"not the exact-size state's {nu['exact'][:4].tolist()}")
+    span = lambda x: f"{float(x.min()):.4f}-{float(x.max()):.4f}"
+    say(f"[service] (f) every one of {live_k} slots live, one batch of N = 16: nu0 of the capacity "
+        f"state {span(nu['capacity'])}, of the exact-size state {span(nu['exact'])} (discount "
+        f"{config.discount:g} x 1 + N / 2 = {config.discount + 8:g})")
 
 
 def phase_service(device="cuda"):

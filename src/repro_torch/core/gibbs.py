@@ -116,16 +116,15 @@ def _advance(
     rank holds the same global state, and no two shards share noise.  Two
     O(K) gathers a sweep; the (K, 2, G) posteriors never cross ranks.  K not
     dividing the shard count is padded with copies of the last row whose
-    telemetry is masked out, and sliced off each gather.  The mask keeps its
-    last axis: a capacity state's (K, 1) live mask counts as it does
-    unsharded.  Without ``sharding`` both maps are the identity.
+    telemetry is masked out, and sliced off each gather.  The mask has t's
+    shape (``gibbs_batch`` broadcasts it), as the reference's sharded path
+    makes it.  Without ``sharding`` both maps are the identity.
     """
     own = everyone = lambda tree: tree
     if sharding is not None:
         k = t.shape[0]
         pad = sharding.pad(k)
-        mask = (torch.ones_like(t) if mask is None
-                else torch.broadcast_to(mask, (k, mask.shape[-1] if mask.ndim else 1)).to(t.dtype))
+        mask = torch.ones_like(t) if mask is None else mask.to(t.dtype)
         mask = local_rows(pad_fleet_mask(mask, pad), sharding)
         own = lambda tree: local_rows(pad_fleet_axis(tree, pad), sharding)
         everyone = lambda tree: unpad_fleet_axis(gather_fleet(tree, sharding), k)
@@ -219,7 +218,7 @@ def _advance_active(
     (``index_select``) and scatter (``index_copy``) take a device index, so
     nothing waits for the device.
     """
-    m = torch.ones_like(t) if mask is None else torch.broadcast_to(mask, t.shape).to(t.dtype)
+    m = torch.ones_like(t) if mask is None else mask.to(t.dtype)
     take = lambda x: x.index_select(0, active_idx)
     slab, ll_slab = _advance(tree_map(take, state), take(t), take(f), take(m), **kw)
     kw.pop("grid_size")
@@ -250,7 +249,9 @@ def gibbs_batch(
     Args:
       state: current chain state (prior hyperparameters + samples).
       t, f: observations, shape (N,) or (K, N).
-      mask: optional validity mask, same shape as ``t``.
+      mask: optional validity mask, broadcastable to ``t``.  It is broadcast
+        to t's shape before it meets the telemetry, so a (K, 1) mask (a
+        capacity state's live slots) counts each of a worker's N elements.
       generator: the chain's random source, on the state's device.
       chain_priors: if True (paper's Algorithm 1), the batch posterior becomes
         the next batch's prior.
@@ -270,6 +271,8 @@ def gibbs_batch(
     """
     kw = dict(generator=generator, n_iters=n_iters, grid_size=grid_size,
               chain_priors=chain_priors)
+    if mask is not None:
+        mask = torch.broadcast_to(mask, t.shape)
     if active_idx is not None and t.ndim >= 2:
         if sharding is not None:
             raise ValueError("active_idx is a single-device path; pass sharding=None")

@@ -12,7 +12,10 @@ strength across the fleet without touching the per-worker estimator:
     refit is a per-worker map and a sum over the fleet (13 scalars,
     :func:`hyper_stats`), then :func:`hyper_from_stats`; over a mesh
     (:func:`fit_hyperprior_sharded`) each rank sums its own rows and one
-    ``all_reduce`` adds the 13 scalars.
+    ``all_reduce`` adds the 13 scalars.  The refit sums in float64: its
+    between-worker variances are E[x^2] - E[x]^2 of nearly equal terms
+    (a fleet of well-learned workers cancels ~50-fold), so in float32 the
+    order of the sum, one device's or a mesh's, would show in the result.
   * :func:`shrink` — blend each worker toward the fleet prior with weight
     ``w = tau / (tau + ess)``: a cold worker (ess 0) lands on the pool, a
     mature one keeps its own data, weight 0 is a bitwise no-op.
@@ -70,7 +73,7 @@ class Hyperprior(NamedTuple):
 class HyperStats(NamedTuple):
     """Sufficient statistics of the refit: sums over (masked) workers of the
     posterior means of mu (m*), lambda (l*), alpha (a*) and beta (b*), and of
-    the within-worker posterior variances (v*)."""
+    the within-worker posterior variances (v*), in float64."""
 
     n: Tensor
     m1: Tensor
@@ -106,7 +109,9 @@ def _beta_mean_var(p: BetaParams) -> Tuple[Tensor, Tensor]:
 
 def hyper_stats(fleet: GibbsState, mask: Optional[Tensor] = None) -> HyperStats:
     """Sufficient statistics of the refit from a (K,)-leaf fleet state;
-    ``mask`` excludes workers (dead slots) with weight 0."""
+    ``mask`` excludes workers (dead slots) with weight 0.  The per-worker
+    terms are computed in float32, then squared and summed in float64
+    (module docstring)."""
     ng = fleet.ng
     m_k = ng.mu0.to(torch.float32)
     lam_k = (ng.nu0 / torch.clamp(ng.psi0, min=TINY)).to(torch.float32)
@@ -116,6 +121,8 @@ def hyper_stats(fleet: GibbsState, mask: Optional[Tensor] = None) -> HyperStats:
     vlam_k = ng.nu0 / torch.clamp(ng.psi0 * ng.psi0, min=TINY)
     a_mean, a_var = _beta_mean_var(fleet.alpha_prior)
     b_mean, b_var = _beta_mean_var(fleet.beta_prior)
+    m_k, lam_k, vmu_k, vlam_k, a_mean, a_var, b_mean, b_var = (
+        x.to(torch.float64) for x in (m_k, lam_k, vmu_k, vlam_k, a_mean, a_var, b_mean, b_var))
 
     w = torch.ones_like(m_k) if mask is None else torch.as_tensor(mask).to(m_k.dtype)
     s = lambda x: torch.sum(w * x, dim=-1)
@@ -157,10 +164,11 @@ def hyper_from_stats(stats: HyperStats) -> Hyperprior:
     a0 = torch.clamp(lam_bar * lam_bar / v_lam, 0.51, 1e6)
     b0 = a0 / lam_bar
     f32 = lambda x: x.to(torch.float32)
+    pool = lambda p: BetaParams(a=f32(p.a), b=f32(p.b))
     return Hyperprior(
         ng=NormalGammaParams(mu0=f32(mu0), kappa0=f32(kappa0), nu0=f32(a0), psi0=f32(b0)),
-        alpha_prior=_pool_beta(stats.a1, stats.a2, stats.va, n),
-        beta_prior=_pool_beta(stats.b1, stats.b2, stats.vb, n),
+        alpha_prior=pool(_pool_beta(stats.a1, stats.a2, stats.va, n)),
+        beta_prior=pool(_pool_beta(stats.b1, stats.b2, stats.vb, n)),
         n_workers=f32(stats.n),
     )
 
@@ -174,6 +182,8 @@ def fit_hyperprior(fleet: GibbsState, mask: Optional[Tensor] = None, group=None)
     13 sufficient statistics are summed over the group's ranks with one
     ``all_reduce``, the reference's ``psum`` over ``axis_name``; every rank
     then returns the same hyperprior (:func:`fit_hyperprior_sharded`).
+    The statistics are summed, reduced and combined in float64 (module
+    docstring) and the hyperprior returned in float32.
     """
     stats = hyper_stats(fleet, mask)
     if group is not None:
@@ -190,8 +200,8 @@ def fit_hyperprior_sharded(
     workers to 13 scalars, one ``all_reduce`` adds them, and every rank
     returns the same hyperprior.  K not dividing the shard count is padded
     with mask-0 dummy workers, which add nothing to any statistic.  The sum
-    runs in another order than :func:`fit_hyperprior`'s, so the two agree to
-    float32 rounding, not bit for bit."""
+    runs in another order than :func:`fit_hyperprior`'s, in float64, so the
+    two agree to float32 rounding, not bit for bit."""
     k = fleet.ng.mu0.shape[0]
     m = (torch.ones((k,), dtype=torch.float32, device=fleet.ng.mu0.device) if mask is None
          else torch.broadcast_to(torch.as_tensor(mask, device=fleet.ng.mu0.device), (k,))

@@ -17,6 +17,7 @@ that its main path went through the kernel: ``launch_counts`` and
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import hashlib
 import os
@@ -25,7 +26,7 @@ import subprocess
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,11 +49,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def build_library(source: Path) -> Path:
-    """Compile ``source`` into a shared library, unless built already."""
+def build_library(source: Path, extra_flags: Sequence[str] = ()) -> Path:
+    """Compile ``source`` into a shared library, unless built already;
+    ``extra_flags`` (say, a ``-D`` that picks another tile) are added to
+    ``NVCC_FLAGS`` and to the library's key."""
+    flags = (*NVCC_FLAGS, *extra_flags)
     headers = b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        source.read_bytes() + headers + " ".join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f"{source.stem}-{digest[:16]}.so"
     if lib.exists():
         return lib
@@ -61,7 +65,7 @@ def build_library(source: Path) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [_nvcc(), *flags, "-o", tmp, str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -80,10 +84,7 @@ def _report_path(lib: Path) -> Path:
 
 def ptxas_report(name: str) -> str:
     """What ptxas said of each entry function of a built kernel's source."""
-    lib = _REGISTRY[name].library
-    if lib is None:
-        raise RuntimeError(f"{name} is not built")
-    return _report_path(lib).read_text()
+    return _REGISTRY[name].ptxas()
 
 
 class CudaKernel:
@@ -95,14 +96,30 @@ class CudaKernel:
         self.name = name
         self.source = CSRC / source
         self.argtypes = list(argtypes)
+        self.flags: Sequence[str] = ()
         self.launches = 0
         self.library = None
         self._fn = None
         _REGISTRY[name] = self
 
+    def variant(self, source: Optional[Path] = None, flags: Sequence[str] = ()) -> "CudaKernel":
+        """This entry point built from another ``source`` or with ``flags``
+        added (a ``-D`` that picks another tile, say).  It is not registered,
+        so its launches count in no run."""
+        other = copy.copy(self)
+        other.source, other.flags = source or self.source, tuple(flags)
+        other.launches, other.library, other._fn = 0, None, None
+        return other
+
+    def ptxas(self) -> str:
+        """What ptxas said of each entry function of this kernel's library."""
+        if self.library is None:
+            raise RuntimeError(f"{self.name} is not built")
+        return _report_path(self.library).read_text()
+
     def build(self):
         if self._fn is None:
-            self.library = build_library(self.source)
+            self.library = build_library(self.source, self.flags)
             lib = ctypes.CDLL(str(self.library))
             fn = getattr(lib, self.name)
             fn.argtypes = self.argtypes

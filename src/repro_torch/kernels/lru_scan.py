@@ -16,9 +16,10 @@ backward; the reference differentiates ``lax.associative_scan`` with
 
 The kernel is a single-pass chunked scan with a chained carry: a block takes
 one tile of ``CHUNK`` time steps by ``WIDTH`` channels of one sequence, and
-each chunk waits for the state its predecessor publishes.  The tile is fixed
-in the kernel's source; ``scan_layout`` does the tiling's arithmetic
-(chunks, channel tiles, tiles, the workspace of carries) and the kernel
+each chunk waits for the state its predecessor publishes.  The backward has
+a tile of its own, ``BWD_CHUNK`` by ``BWD_WIDTH``.  Each tile is fixed in the
+kernel's source; ``scan_layout`` does the tiling's arithmetic (chunks,
+channel tiles, tiles, the workspace of carries) for either, and the kernel
 refuses a workspace or a tile that disagrees.
 """
 from __future__ import annotations
@@ -45,21 +46,28 @@ _BWD_KERNEL = CudaKernel(
 # The kernel's tile (kChunk, kWidth in csrc/lru_scan.cu), the fastest of
 # those timed at the serving path's prefill shape on an H100 (PERF.md, K3).
 CHUNK, WIDTH = 128, 32
+# The backward's tile (kBwdChunk, kBwdWidth), the fastest of those timed at
+# the training path's (2, 512, 2560) that does not slow the prefill shape
+# (tools/tune_lru_scan_bwd.py; PERF.md, K3 bwd).
+BWD_CHUNK, BWD_WIDTH = 64, 64
 _COUNTER_BYTES = 16  # the workspace's tile counter, padded
 
 
 class ScanLayout(NamedTuple):
-    """How one call of K3 is tiled, and the workspace that takes."""
+    """How one call of K3 (or its backward) is tiled, and the workspace that
+    takes."""
 
-    n_chunks: int  # ceil(T / CHUNK)
-    n_rtiles: int  # channel tiles of one sequence, ceil(R / WIDTH)
+    n_chunks: int  # ceil(T / chunk)
+    n_rtiles: int  # channel tiles of one sequence, ceil(R / width)
     n_tiles: int  # blocks of the launch: n_chunks * B * n_rtiles
     workspace_bytes: int  # counter, (n_chunks - 1, B, R) 8-byte carries; cleared per launch
 
 
-def scan_layout(bsz: int, t: int, r: int) -> ScanLayout:
-    """K3's tiling of a (bsz, t, r) scan."""
-    n_chunks, n_rtiles = -(-t // CHUNK), -(-r // WIDTH)
+def scan_layout(bsz: int, t: int, r: int, chunk: int = CHUNK, width: int = WIDTH) -> ScanLayout:
+    """The tiling of a (bsz, t, r) scan by tiles of ``chunk`` steps and
+    ``width`` channels: K3's by default, its backward's with ``BWD_CHUNK``
+    and ``BWD_WIDTH``."""
+    n_chunks, n_rtiles = -(-t // chunk), -(-r // width)
     workspace_bytes = _COUNTER_BYTES + 8 * max(n_chunks - 1, 0) * bsz * r
     return ScanLayout(n_chunks, n_rtiles, n_chunks * bsz * n_rtiles, workspace_bytes)
 
@@ -133,23 +141,29 @@ def lru_scan_cuda(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     return out
 
 
-def lru_scan_bwd_cuda(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor):
+def lru_scan_bwd_cuda(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor, *, kernel=None,
+                      tile=(BWD_CHUNK, BWD_WIDTH)):
     """Launch K3's backward on the current stream: a, h (the forward's
     output) and dy (B, T, R), all float32 or all bfloat16, h0 (B, R), on one
     CUDA device.  Returns (da, db) in a's dtype; dh0 = a_0 db_0 is the
-    caller's (``LruScan.backward``)."""
+    caller's (``LruScan.backward``).  ``kernel`` (a ``CudaKernel.variant``
+    of this entry point) and ``tile``, the (chunk, width) it was built
+    with, launch another build, as ``tools/tune_lru_scan_bwd.py`` does; the
+    kernel refuses a tile that is not its own."""
     _check("lru_scan_bwd_cuda", a, (h, dy), h0)
     bsz, t, r = a.shape
-    layout = scan_layout(bsz, t, r)
+    kernel = _BWD_KERNEL if kernel is None else kernel
+    chunk, width = tile
+    layout = scan_layout(bsz, t, r, chunk, width)
     a, h, dy = a.contiguous(), h.contiguous(), dy.contiguous()
     h0 = h0.to(torch.float32).contiguous()
     da, db = torch.empty_like(a), torch.empty_like(a)
     workspace = torch.empty(layout.workspace_bytes, dtype=torch.uint8, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
-        _BWD_KERNEL.launch(
+        kernel.launch(
             a.data_ptr(), dy.data_ptr(), h.data_ptr(), h0.data_ptr(), da.data_ptr(),
-            db.data_ptr(), workspace.data_ptr(), layout.workspace_bytes, bsz, t, r, CHUNK, WIDTH,
+            db.data_ptr(), workspace.data_ptr(), layout.workspace_bytes, bsz, t, r, chunk, width,
             int(a.dtype == torch.bfloat16), stream,
         )
     return da, db

@@ -101,17 +101,22 @@ def posterior_grid_fleet(
 
 
 class _Prior(NamedTuple):
-    a: float = 2.0  # the unused mode's dummy prior (BetaParams.default)
-    b: float = 2.0
+    a: Tensor
+    b: Tensor
 
 
-def _single_mode(grid, t, f, mu, lam, alpha, beta, alpha_prior, beta_prior, mask, mode):
-    return posterior_grid_fleet(
-        grid, t, f, mu, lam, alpha, beta,
-        alpha_prior if alpha_prior is not None else _Prior(),
-        beta_prior if beta_prior is not None else _Prior(),
-        mask,
-    )[..., mode, :]
+def _single_mode(grid, t, f, mu, lam, exponent, prior, mask, mode):
+    """Row ``mode`` of the fused launch, given the other mode's exponent.
+    The unused mode's exponent (0.5) and prior (``BetaParams.default``'s 2,
+    2) are dummies made on t's device, so a call copies nothing from the
+    host and a CUDA graph can capture it."""
+    dummy = lambda v: torch.full((), v, dtype=torch.float32, device=t.device)
+    other = _Prior(dummy(2.0), dummy(2.0))
+    if mode == 0:
+        alpha, beta, priors = dummy(0.5), exponent, (prior, other)
+    else:
+        alpha, beta, priors = exponent, dummy(0.5), (other, prior)
+    return posterior_grid_fleet(grid, t, f, mu, lam, alpha, beta, *priors, mask)[..., mode, :]
 
 
 def posterior_grid_alpha(
@@ -128,7 +133,7 @@ def posterior_grid_alpha(
 
     Production code that needs both exponents calls ``posterior_grid_fleet``
     once; this slice computes, and discards, the beta row too."""
-    return _single_mode(grid, t, f, mu, lam, 0.5, beta, prior, None, mask, 0)
+    return _single_mode(grid, t, f, mu, lam, beta, prior, mask, 0)
 
 
 def posterior_grid_beta(
@@ -143,7 +148,7 @@ def posterior_grid_beta(
 ) -> Tensor:
     """Eq 11 on a grid: the beta row of the fused launch (see
     ``posterior_grid_alpha``)."""
-    return _single_mode(grid, t, f, mu, lam, alpha, 0.5, None, prior, mask, 1)
+    return _single_mode(grid, t, f, mu, lam, alpha, prior, mask, 1)
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Optional[Tensor] = None) -> Tensor:

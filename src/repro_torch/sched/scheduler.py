@@ -188,7 +188,9 @@ def observe(
     Power-prior forgetting is applied before the batch; the whole fleet
     advances through one ``gibbs_batch``, so each sweep's grid posterior is
     ONE K1 launch.  ``mask`` (same shape as ``telemetry.times``) invalidates
-    elements exactly; on a capacity state dead slots are masked out too.
+    elements exactly; on a capacity state dead slots are masked out too, by
+    a (K, 1) live mask that ``gibbs_batch`` broadcasts to the times, so a
+    live worker counts each of its N elements.
     Returns the per-worker log-likelihood.
     """
     if state.live is not None:

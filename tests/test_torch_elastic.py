@@ -234,6 +234,40 @@ def test_scheduler_shell_elastic_api():
     assert scores.shape == (s.capacity,) and scores[0] == 0.0
 
 
+@pytest.mark.parametrize("path", ["dense", "active"])
+def test_capacity_state_counts_every_observation(path):
+    """Fault 3f: with every slot live (capacity = K = 6, N = 16) one observe
+    leaves each worker's nu0 where the exact-size state's goes, discount x 1
+    + N / 2 = 8.9: the (K, 1) live mask is broadcast to the times before it
+    meets the Normal-Gamma update, so it counts N a worker a batch, not 1.
+    "active" advances through the active-set path (M = 2 of K = 6), as the
+    service does.  nu0 does not depend on the draws, so the reference is held
+    to it too, given the explicit mask of ones: that takes its own broadcast
+    branch (src/repro/sched/scheduler.py:244-246); without a mask it counts 1
+    a worker, its fault, which the JAX package keeps."""
+    k = 6
+    tel = _ttel(1, k)
+    full = ts.init(TCFG, k, seed=0, device="cpu", capacity=k)
+    exact = ts.init(TCFG, k, seed=0, device="cpu")
+    if path == "dense":
+        got = ts.observe(full, tel, TCFG)[0].gibbs.ng.nu0
+        want = ts.observe(exact, tel, TCFG)[0].gibbs.ng.nu0
+    else:
+        idx = torch.tensor([1, 4])
+        run = lambda st, mask: ts.advance_fleet(st.gibbs, tel.times, tel.fracs, TCFG, st.generator,
+                                             mask=mask, active_idx=idx)[0].ng.nu0
+        got, want = run(full, full.live[:, None]), run(exact, None)
+    n = tel.times.shape[1]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), TCFG.discount + n / 2, rtol=1e-6)
+    jstate = js.init(JCFG, num_workers=k, key=jax.random.PRNGKey(0), capacity=k)
+    jtel = _jtel(1, k)
+    ref = js.observe(jstate, jtel, JCFG, mask=jnp.ones(jtel.times.shape))[0].gibbs.ng.nu0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
+    ref_fault = js.observe(jstate, jtel, JCFG)[0].gibbs.ng.nu0
+    np.testing.assert_allclose(np.asarray(ref_fault), JCFG.discount + 0.5, rtol=1e-6)
+
+
 @pytest.mark.cuda
 def test_admit_observe_propose_retire_run_without_a_host_sync():
     """On the card the elastic cycle waits for nothing (chip_smoke.py's

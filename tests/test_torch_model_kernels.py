@@ -199,6 +199,41 @@ def test_lru_scan_layout_at_ragged_shapes(case):
         assert lay.workspace_bytes == 16 + 8 * 31 * 4 * 2560
 
 
+SCAN_TRAIN = (2, 512, 2560)  # the training path's: recurrentgemma-2b, a 2 x 512 microbatch
+
+
+def _bwd_ragged_scans():
+    """K3's backward's (B, T, R) at the edges of its own chunk: one step, a
+    chunk less one, a chunk and one step, two chunks and one step; R of 300
+    (not a whole tile) and the path's 2560."""
+    c = k3.BWD_CHUNK
+    return [(1, 1, 300), (2, c - 1, 300), (2, c + 1, 2560), (3, 2 * c + 1, 300)]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_lru_scan_backward_layout_at_ragged_shapes(case):
+    """The backward's own tiling (``BWD_CHUNK`` x ``BWD_WIDTH``): every (t,
+    r) in exactly one tile, one block a tile, an 8-byte carry for every
+    (chunk but the last, b, r) after the counter; and the forward's layout
+    of the same shape unchanged (``CHUNK`` x ``WIDTH``, the default)."""
+    bsz, t, r = (_bwd_ragged_scans() + [SCAN_TRAIN, SCAN_PATH])[case]
+    lay = scan_layout(bsz, t, r, k3.BWD_CHUNK, k3.BWD_WIDTH)
+    assert (lay.n_chunks - 1) * k3.BWD_CHUNK < t <= lay.n_chunks * k3.BWD_CHUNK
+    assert (lay.n_rtiles - 1) * k3.BWD_WIDTH < r <= lay.n_rtiles * k3.BWD_WIDTH
+    assert lay.n_tiles == lay.n_chunks * bsz * lay.n_rtiles
+    assert lay.workspace_bytes == 16 + 8 * (lay.n_chunks - 1) * bsz * r
+    fwd = scan_layout(bsz, t, r)
+    assert fwd == scan_layout(bsz, t, r, k3.CHUNK, k3.WIDTH)
+    assert fwd.n_chunks == -(-t // 128) and fwd.n_rtiles == -(-r // 32)
+    if (bsz, t, r) == SCAN_TRAIN:
+        assert (k3.BWD_CHUNK, k3.BWD_WIDTH, k3.CHUNK, k3.WIDTH) == (64, 64, 128, 32)
+        assert tuple(lay) == (8, 40, 640, 16 + 8 * 7 * 2 * 2560)
+        assert tuple(fwd) == (4, 80, 640, 16 + 8 * 3 * 2 * 2560)
+    if (bsz, t, r) == SCAN_PATH:
+        assert tuple(lay) == (64, 40, 10240, 16 + 8 * 63 * 4 * 2560)
+        assert tuple(fwd) == (32, 80, 10240, 16 + 8 * 31 * 4 * 2560)
+
+
 def test_lru_scan_cpu_path_takes_no_layout_workspace_or_launch(monkeypatch):
     """A CPU tensor runs the plain version: no layout is computed, no
     workspace allocated and no kernel launched."""
@@ -212,6 +247,26 @@ def test_lru_scan_cpu_path_takes_no_layout_workspace_or_launch(monkeypatch):
     before = kernels.launch_counts()
     _close(ops.lru_scan(a, x, h0), lru_scan_plain(a, x, h0).numpy(), 0)
     assert kernels.launch_counts() == before
+
+
+def test_a_backward_variant_is_built_apart_and_counted_in_no_run():
+    """``CudaKernel.variant`` (another tile's build of the backward, as the
+    tuning tool makes) keeps the entry point and its argument types, adds
+    its flags, starts unbuilt with no launches, and leaves the registered
+    kernel and the launch counts alone; ``lru_scan_bwd_cuda`` handed it with
+    CPU tensors raises before building anything."""
+    flags = ("-DLRU_SCAN_BWD_CHUNK=32", "-DLRU_SCAN_BWD_WIDTH=32")
+    before = kernels.launch_counts()
+    other = k3._BWD_KERNEL.variant(flags=flags)
+    assert other is not k3._BWD_KERNEL and tuple(other.flags) == flags
+    assert (other.name, other.source, other.argtypes) == (
+        k3._BWD_KERNEL.name, k3._BWD_KERNEL.source, k3._BWD_KERNEL.argtypes)
+    assert (other.launches, other.library) == (0, None) and tuple(k3._BWD_KERNEL.flags) == ()
+    assert kernels.launch_counts() == before
+    a, x, h0 = map(torch.as_tensor, _scan_inputs(1, 4, 8, seed=1))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k3.lru_scan_bwd_cuda(a, x, h0, x, kernel=other, tile=(32, 32))
+    assert other.library is None and kernels.launch_counts() == before
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -365,6 +420,37 @@ def test_lru_scan_backward_kernel_matches_plain_on_card(dtype):
             assert g.dtype == w.dtype and g.shape == w.shape
             err = float((g.float() - w.float()).abs().max())
             assert err <= tol * float(w.float().abs().max()), ((b, t, r), near_one, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lru_scan_backward_kernel_at_its_chunk_edges_on_card(dtype):
+    """K3's backward at the edges of its own chunk (``BWD_CHUNK`` less or
+    more one step, one step, two chunks and one), R of 300 (not a whole
+    tile), h0 != 0, decays near 1, through ``LruScan`` against autograd
+    through the plain version; then with h alone not 16-byte aligned (its
+    rows staged by plain loads), ``lru_scan_bwd_cuda`` on the forward's
+    output against ``lru_scan_backward_plain``.  Tolerances as
+    test_lru_scan_backward_kernel_matches_plain_on_card's."""
+    _needs_card()
+    tdt = DTYPES[dtype][1]
+    tol = 1e-5 if dtype == "float32" else 4e-2
+    c = k3.BWD_CHUNK
+    for b, t, r in [(2, c - 1, 300), (2, c + 1, 300), (1, 1, 300), (3, 2 * c + 1, 2560)]:
+        a, x, h0 = (torch.as_tensor(y, device="cuda").to(tdt)
+                    for y in _scan_inputs(b, t, r, seed=t + 3, near_one=True))
+        dy = torch.randn((b, t, r), generator=torch.Generator("cuda").manual_seed(t),
+                         device="cuda").to(tdt)
+        h = k3.lru_scan(a, x, h0)
+        h_off = torch.empty(h.numel() + 1, dtype=tdt, device="cuda")[1:].view_as(h).copy_(h)
+        pairs = [(_scan_grads(ops.lru_scan, a, x, h0, dy), _scan_grads(lru_scan_plain, a, x, h0, dy)),
+                 (k3.lru_scan_bwd_cuda(a, h_off, h0, dy), k3.lru_scan_backward_plain(a, h, h0, dy)[:2])]
+        torch.cuda.synchronize()
+        for got, want in pairs:
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                err = float((g.float() - w.float()).abs().max())
+                assert err <= tol * float(w.float().abs().max()), ((b, t, r), err)
 
 
 @pytest.mark.cuda

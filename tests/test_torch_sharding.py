@@ -284,6 +284,18 @@ def test_observe_dag_through_a_mesh(run):
     assert_bitwise(got, "dag.unsharded", "dag.sharded")
 
 
+def test_capacity_state_counts_every_observation_on_a_mesh(run):
+    """Fault 3f over 4 ranks: a capacity state with every slot live (K = 8,
+    N = 16) ends one sharded observe with the exact-size state's nu0,
+    discount x 1 + N / 2 = 8.9 on every rank: the sharded branch broadcasts
+    the (K, 1) live mask to the times, as the unsharded paths do
+    (tests/test_torch_elastic.py::test_capacity_state_counts_every_observation)."""
+    for rank in range(world.WORLD):
+        got = case(run, "sched", rank)
+        np.testing.assert_allclose(got["nu.capacity"], got["nu.exact"], rtol=1e-6)
+        np.testing.assert_allclose(got["nu.capacity"], 0.9 + 16 / 2, rtol=1e-6)
+
+
 @pytest.mark.parametrize("path", ["admit", "add"])
 def test_hierarchical_admissions_on_a_mesh(run, path):
     """admit_workers into a capacity state's dead slots (the refit masks

@@ -279,6 +279,12 @@ def case_sched(cfg):
         out.update(flat(f"dag.{tag}", d.gibbs))
         out.update({f"dag.{tag}.ll": ll.numpy(), f"dag.{tag}.gen": d.generator.get_state().numpy()})
 
+    # fault 3f: every slot of a capacity state live, one batch of N = 16
+    for tag, capacity in (("capacity", 8), ("exact", None)):
+        st = sched.init(meshed, 8, seed=6, device="cpu", capacity=capacity)
+        st, _ = sched.observe(st, _telem(8, 16, seed=63), meshed)
+        out[f"nu.{tag}"] = st.gibbs.ng.nu0.numpy()
+
     plain, meshed = _pair(cfg, mu_guess=25.0, hierarchical=True)
     for tag, c in (("unsharded", plain), ("sharded", meshed)):
         # admission into dead slots of a capacity state: the refit masks them
