@@ -271,6 +271,25 @@ result lines:
      (e)'s scale, K = 100 000, G 512, N 8, 20 sweeps (20 K1 launches,
      "sharded_fleet_scale"); the ms and peak memory of each observe sharded
      and unsharded.  The world is destroyed at the end of the phase.
+ 23. model-tensor sharding (``repro_torch.distributed.sharding`` and the
+     model stack's mesh hooks) on a one-rank NCCL world and a (1, 1)
+     ("data", "model") ``DeviceMesh`` (a ``FileStore`` under ``build/``):
+     full-width recurrentgemma-2b, all 26 layers, its parameters placed by
+     ``tree_shardings(default_rules(fsdp=False))`` and its cache by
+     ``cache_shardings``, prefill of 4 x 1024 tokens and 8 decode steps (K3
+     18 and K2 64 launches, every one under ``local_map``: the wrappers
+     refuse a DTensor), the logits against the unsharded twin's (bitwise,
+     or TF_TOL, said which), prefill and decode ms beside the twin's (each
+     run once to warm up, once timed); ``Trainer(mesh_info=)`` on it cut to
+     6 layers, 8 x 512 tokens in 4 microbatches, 2 steps and one drain
+     (K1 20, K3 32 and its backward 16 launches), the losses at rtol 1e-5
+     of the unsharded trainer's; one full-width granite-moe-3b-a800m MoE
+     layer on the mesh (its tensor-parallel path) against the unsharded
+     layer; then K2's log-sum-exp output against its plain version at
+     phase 7's shape and every compiled (G, D), a float32 cache split in two
+     halves merged by the log-sum-exps against K2 on the whole (an empty
+     half adding nothing), and K2's time at phase 7's shape with and without
+     the output.  The world is destroyed at the end of the phase.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -3716,6 +3735,264 @@ def phase_sharded(device="cuda", k=K_FLEET, n=N_OBS, big_k=SVC_K, dag_k=DAG_K, d
                 sharded_fleet_scale=scale_launches), gap
 
 
+# Phase 23: model-tensor sharding (``repro_torch.distributed.sharding`` and
+# the model stack's mesh hooks) on a one-rank NCCL world and a (1, 1)
+# ("data", "model") mesh.  One card hides every collective (the 4-rank gloo
+# tests prove them); here the mesh path runs at full width with its kernels
+# under local_map, and its DTensor dispatch is timed beside the unsharded twin.
+MESH_SERVE = (4, 1024, 8)  # batch, prompt, decode steps; recurrentgemma-2b, all 26 layers
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_MB = 6, 2, 4
+MESH_TRAIN_SHAPE = dict(seq_len=512, global_batch=8)
+MESH_TRAIN_RUN = dict(TRAIN_RUN, grad_compression="none", partitioner_refit_every=2, warmup_steps=1)
+MESH_MOE_TOKENS = (4, 512)  # granite-moe-3b-a800m's MoE layer at full width
+MESH_STORE = ROOT / "build" / "model_sharding_store"  # git-ignored; the world's FileStore
+MESH_DIR = ROOT / "build" / "model_sharding_ckpt"  # git-ignored; never written (no checkpoint)
+MESH_TOL = dict(rtol=1e-5, atol=0.0)  # the trainers' losses on one rank
+MOE_MESH_ATOL = 2e-2  # the MoE layer's bfloat16 output: a few units of its last place
+
+
+def whole(x):
+    """A DTensor gathered whole; any other tensor as it is."""
+    from repro_torch.device import is_dtensor
+
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def mesh_serve(device, mi, cfg, batch, prompt, steps):
+    """Prefill and ``steps`` decode steps of full-width ``cfg`` twice, the
+    unsharded twin and on the mesh (parameters placed by
+    ``tree_shardings(default_rules(fsdp=False))``, the cache by
+    ``cache_shardings``), each run once to warm up and once timed.  Returns
+    ((twin logits, mesh logits), (prefill ms, decode ms a token) of each,
+    the mesh run's launches)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model_zoo
+    from repro_torch.models.layers import ApplyCtx
+
+    params = model_zoo.init_model_params(cfg, seed=0, device=device)
+    specs = shd.tree_shardings(model_zoo.abstract_model_params(cfg), model_zoo.model_axes(cfg),
+                               mi.mesh, shd.default_rules(mi.mesh, fsdp=False))
+    placed = shd.shard_tree(params, specs, mi.mesh)
+    gen = torch.Generator(device=device).manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt + steps), generator=gen,
+                           device=device, dtype=torch.int32)
+
+    def run(p, info):
+        cache = model_zoo.init_cache(cfg, batch, prompt + steps + 8, device=device)
+        if info is not None:
+            cache = shd.shard_tree(cache, shd.cache_shardings(
+                cache, model_zoo.transformer.cache_axes_tree(cfg), info.mesh), info.mesh)
+        (logits, cache), pre_ms = clock(device, lambda: model_zoo.prefill(
+            cfg, p, {"tokens": tokens[:, :prompt]}, cache, ctx=ApplyCtx(mode="prefill",
+                                                                        mesh_info=info)))
+        outs, ms = [whole(logits)], []
+        for j in range(prompt, prompt + steps):
+            (logits, cache), t = clock(device, lambda: model_zoo.decode_step(
+                cfg, p, tokens[:, j:j + 1], cache, ctx=ApplyCtx(mode="decode", mesh_info=info)))
+            outs.append(whole(logits))
+            ms.append(t)
+        return torch.stack(outs), (pre_ms, statistics.median(ms))
+
+    got, times, launches = {}, {}, {}
+    for tag, p, info in (("twin", params, None), ("mesh", placed, mi)) * 2:  # warm-up, timed
+        kernels.reset_launch_counts()
+        got[tag], times[tag] = run(p, info)
+        launches[tag] = kernels.launch_counts()
+    return (got["twin"], got["mesh"]), times, launches["mesh"]
+
+
+def mesh_train(device, mi, cfg, steps, m, shape):
+    """``Trainer`` on ``cfg`` with the partitioner on a simulated fleet, the
+    unsharded twin and then ``Trainer(mesh_info=mi)`` from the same seed, each
+    ``steps`` steps (one drain), the first step a warm-up and the rest timed
+    on the host's clock.  Returns (twin losses, mesh losses, (twin ms, mesh
+    ms) a timed step, the mesh trainer's launches)."""
+    import shutil
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import RunConfig, ShapeConfig
+    from repro_torch.device import is_dtensor
+    from repro_torch.distributed.simulated_cluster import SimulatedCluster
+    from repro_torch.launch.train import simulated_fleet
+    from repro_torch.train.trainer import Trainer
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    run = RunConfig(model=cfg, shape=ShapeConfig("phase23", kind="train", **shape),
+                    total_steps=steps, checkpoint_every=10**9, checkpoint_dir=str(MESH_DIR),
+                    **MESH_TRAIN_RUN)
+    out = {}
+    for tag, info in (("twin", None), ("mesh", mi)):
+        kernels.reset_launch_counts()
+        trainer = Trainer(run, cluster=SimulatedCluster(simulated_fleet(TRAIN_WORKERS)),
+                          num_microbatches=m, mesh_info=info, device=device)
+        if info is not None and not is_dtensor(trainer.params["embed"]):
+            raise AssertionError("[mesh-train] the trainer's parameters are not DTensors")
+        first = trainer.train(1).losses
+        report, ms = clock(device, lambda: trainer.train(steps - 1))
+        out[tag] = (first + report.losses, ms / (steps - 1), kernels.launch_counts())
+        del trainer
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out["twin"][0], out["mesh"][0], (out["twin"][1], out["mesh"][1]), out["mesh"][2]
+
+
+def mesh_moe(device, mi, cfg, tokens):
+    """One MoE layer of full-width ``cfg`` on the mesh (on one rank: the
+    tensor-parallel path, d_ff over a model axis of 1) against the same
+    layer unsharded.  Returns (the path, max |err|, bitwise)."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import moe, params as mp
+    from repro_torch.models.layers import ApplyCtx, constrain_batch, mesh_scope
+
+    spec = moe.moe_spec(cfg)
+    gen = torch.Generator(device=device).manual_seed(5)
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    layer = mp.init_params(spec, gen, dtype, device)
+    x = torch.randn((*tokens, cfg.d_model), generator=gen, device=device).to(dtype)
+    want, _ = moe.moe_ffn(cfg, layer, x)
+    specs = shd.tree_shardings(mp.abstract_params(spec), mp.axes_tree(spec), mi.mesh,
+                               shd.default_rules(mi.mesh, fsdp=False))
+    ctx = ApplyCtx(mode="train", mesh_info=mi)
+    with torch.no_grad(), mesh_scope(ctx):
+        got, _ = moe.moe_ffn(cfg, shd.shard_tree(layer, specs, mi.mesh), constrain_batch(x, ctx), ctx)
+    got = whole(got)
+    err = float((got.float() - want.float()).abs().max())
+    return moe.moe_path(cfg, mi), err, bool(torch.equal(got, want))
+
+
+def k2_lse_checks():
+    """K2's log-sum-exp output on the card: against the plain version at
+    phase 7's shape and at every compiled (G, D) (lengths 0, one chunk's
+    tail, all S); a float32 cache at phase 7's shape split in two halves,
+    each with its own valid count, merged by the log-sum-exps against K2 on
+    the whole (a row whose second half is empty: that half's lse -inf, its
+    output zeros, the merge bitwise the first half's).  Returns the worst
+    |err| of the outputs and of the log-sum-exps, and K2's time at phase 7's
+    shape with and without the output."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        INSTANTIATED,
+        decode_attention,
+        decode_attention_plain,
+    )
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    err_out = err_lse = 0.0
+    cases = [(K2_PATH, bf16, f32, None)] + [((3, g * 2, 2, d, 200), f32, f32, [0, 70, 200])
+                                            for g, d in sorted(INSTANTIATED)]
+    for i, (shape, q_dt, kv_dt, length) in enumerate(cases):
+        q, k, v, n = decode_case(*shape, seed=230 + i, q_dtype=q_dt, kv_dtype=kv_dt, length=length)
+        out, lse = decode_attention(q, k, v, n, return_lse=True)
+        want_out, want_lse = decode_attention_plain(q, k, v, n, return_lse=True)
+        if not torch.equal(out, decode_attention(q, k, v, n)):
+            raise AssertionError(f"[k2-lse] {shape}: the output changed with the flag")
+        live = n > 0
+        if not bool(torch.isneginf(lse[~live]).all()):
+            raise AssertionError(f"[k2-lse] {shape}: an empty row set's lse is not -inf")
+        err_lse = max(err_lse, assert_close(lse[live].cpu(), want_lse[live].cpu(), rtol=RTOL,
+                                            atol=RTOL))
+        err_out = max(err_out, assert_close(out.float().cpu(), want_out.float().cpu(),
+                                            rtol=RTOL if q_dt == f32 else 2e-2,
+                                            atol=RTOL if q_dt == f32 else 2e-2))
+    b, h, kvh, d, s = K2_PATH
+    half = s // 2
+    q, k, v, _ = decode_case(*K2_PATH, seed=239, q_dtype=f32, kv_dtype=f32)
+    n = torch.tensor([s, 1500, half, 700], dtype=torch.int32, device="cuda")[:b]
+    whole_out = decode_attention(q, k, v, n)
+    parts = [decode_attention(q, k[:, r * half:(r + 1) * half].contiguous(),
+                              v[:, r * half:(r + 1) * half].contiguous(),
+                              torch.clamp(n - r * half, 0, half), return_lse=True)
+             for r in range(2)]
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - lse.max(dim=0).values)[..., None]
+    merged = (w[0] * parts[0][0] + w[1] * parts[1][0]) / w.sum(dim=0)
+    err_out = max(err_out, assert_close(merged.cpu(), whole_out.cpu(), rtol=RTOL, atol=RTOL))
+    empty = n <= half
+    if not (bool(torch.isneginf(parts[1][1][empty]).all()) and not bool(parts[1][0][empty].any())
+            and torch.equal(merged[empty], parts[0][0][empty])):
+        raise AssertionError("[k2-lse] an empty half added something to the merge")
+    sets = [decode_case(*K2_PATH, seed=7 + i, q_dtype=bf16, kv_dtype=f32, length=[s] * b)
+            for i in range(8)]
+    with_lse = lambda q, k, v, n: decode_attention(q, k, v, n, return_lse=True)
+    ms, lse_ms = (time_cuda(round_robin(fn, sets), runs=30, reps=20)
+                  for fn in (decode_attention, with_lse))
+    say(f"[k2-lse] log-sum-exp output against the plain version at {len(cases)} shapes (phase 7's "
+        f"and every compiled (G, D)): max|err| {err_lse:.3e}, outputs {err_out:.3e}; phase 7's "
+        f"float32 cache split in two halves of {half} rows (lengths {n.tolist()}) and merged by "
+        f"log-sum-exp equals K2 on the whole; an empty half adds nothing")
+    say(f"[k2-lse] K2 at {K2_PATH}: {ms:.4f} ms without the output, {lse_ms:.4f} ms with it")
+    return err_out, err_lse, dict(ms=ms, with_lse_ms=lse_ms)
+
+
+def phase_model_sharded(device="cuda", serve_cfg=None, serve=MESH_SERVE, train_cfg=None,
+                        train_steps=MESH_TRAIN_STEPS, train_mb=MESH_TRAIN_MB,
+                        train_shape=MESH_TRAIN_SHAPE, moe_cfg=None, moe_tokens=MESH_MOE_TOKENS):
+    """Phase 23: the model stack on a (1, 1) ("data", "model") mesh over a
+    one-rank world started in this process (NCCL on the card, gloo on the
+    CPU), destroyed at the end: full-width recurrentgemma-2b served (prefill
+    and decode through K3 and K2 under local_map) against its unsharded twin;
+    ``Trainer(mesh_info=)`` on it cut to MESH_TRAIN_LAYERS layers against the
+    unsharded trainer; one full-width granite MoE layer on the mesh against
+    the unsharded layer.  Returns the mesh runs' launches by path."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.models import MeshInfo
+
+    serve_cfg = serve_cfg or get_arch(SERVE_ARCH)
+    train_cfg = train_cfg or dataclasses.replace(get_arch(HYBRID_ARCH), num_layers=MESH_TRAIN_LAYERS)
+    moe_cfg = moe_cfg or get_arch(GRANITE_ARCH)
+    MESH_STORE.parent.mkdir(parents=True, exist_ok=True)
+    MESH_STORE.unlink(missing_ok=True)  # a stale store from a cut run would hang the rendezvous
+    backend = "nccl" if device != "cpu" else "gloo"
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(str(MESH_STORE), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(torch.device(device).type, (1, 1), mesh_dim_names=("data", "model"))
+        mi = MeshInfo(mesh, ("data",), "model")
+        say(f"[mesh] {backend} world of 1 rank, {mesh}")
+        (twin, got), times, serve_launches = mesh_serve(device, mi, serve_cfg, *serve)
+        if got.shape != (serve[2] + 1, serve[0], serve_cfg.vocab_size) or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"[mesh-serve] logits {tuple(got.shape)} not finite or misshapen")
+        bitwise = bool(torch.equal(got, twin))
+        err = assert_close(got.float().cpu(), twin.float().cpu(), **TF_TOL)
+        say(f"[mesh-serve] {serve_cfg.name} ({serve_cfg.num_layers} layers) batch {serve[0]} prompt "
+            f"{serve[1]}, {serve[2]} decode steps on the mesh: logits "
+            f"{'bitwise' if bitwise else f'max|err| {err:.3e} (TF_TOL)'} the unsharded twin's; "
+            f"prefill {times['mesh'][0]:.1f} ms (twin {times['twin'][0]:.1f}), decode "
+            f"{times['mesh'][1]:.2f} ms/token (twin {times['twin'][1]:.2f}); launches {serve_launches}")
+        del twin, got
+        twin_losses, losses, step_ms, train_launches = mesh_train(
+            device, mi, train_cfg, train_steps, train_mb, train_shape)
+        import numpy as np
+
+        np.testing.assert_allclose(losses, twin_losses, **MESH_TOL)
+        say(f"[mesh-train] {train_cfg.name} cut to {train_cfg.num_layers} layers, "
+            f"{train_shape['global_batch']} x {train_shape['seq_len']} in {train_mb} microbatches, "
+            f"{train_steps} steps: losses {losses} on the mesh, {twin_losses} unsharded (rtol "
+            f"{MESH_TOL['rtol']}); {step_ms[1]:.1f} ms a step after the first (unsharded "
+            f"{step_ms[0]:.1f}); "
+            f"launches {train_launches}")
+        path, moe_err, moe_bitwise = mesh_moe(device, mi, moe_cfg, moe_tokens)
+        if moe_err > MOE_MESH_ATOL:
+            raise AssertionError(f"[mesh-moe] max|err| {moe_err:.3e} against the unsharded layer")
+        say(f"[mesh-moe] {moe_cfg.name} MoE layer, {moe_tokens[0]} x {moe_tokens[1]} tokens, on the "
+            f"mesh ({path} path): {'bitwise' if moe_bitwise else f'max|err| {moe_err:.3e}'} the "
+            f"unsharded layer")
+    finally:
+        dist.destroy_process_group()
+        MESH_STORE.unlink(missing_ok=True)
+    return dict(model_sharded_serve=serve_launches, model_sharded_train=train_launches)
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -3879,6 +4156,20 @@ def main() -> int:
         raise AssertionError(f"[sharded] launches {sharded_launches}, not {want}")
     if sharded_gap < 0.8:
         raise AssertionError(f"[sharded] oracle gap recovered {100 * sharded_gap:.1f} % < 80 %")
+    model_launches = phase_model_sharded()
+    cut = dataclasses.replace(get_arch(HYBRID_ARCH), num_layers=MESH_TRAIN_LAYERS)
+    n = layer_kinds(cut).count("rglru") * MESH_TRAIN_MB * MESH_TRAIN_STEPS
+    want = dict(model_sharded_serve=dict(none, lru_scan=kinds.count("rglru"),  # the prefill
+                                         decode_attention=kinds.count("localattn") * MESH_SERVE[2]),
+                # remat "full": K3 twice an RG-LRU layer a microbatch, its backward once;
+                # K1 20 at the one drain
+                model_sharded_train=dict(none, posterior_grid_fleet=SWEEPS, lru_scan=2 * n,
+                                         lru_scan_bwd=n))
+    if model_launches != want:
+        raise AssertionError(f"[mesh] launches {model_launches}, not {want}")
+    lse_out_err, lse_err, lse_timing = k2_lse_checks()
+    errs["decode_attention"] = max(errs["decode_attention"], lse_out_err, lse_err)
+    timing["decode_attention"]["with_lse_ms"] = lse_timing["with_lse_ms"]
     total = lambda by_remat: {k: sum(c[k] for c in by_remat.values()) for k in none}
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
@@ -3892,9 +4183,10 @@ def main() -> int:
                    train_parity=parity_launches, train=train_launches, train_cli=cli_launches,
                    train_hybrid=hybrid_launches, train_remat=total(train_remat),
                    train_hybrid_remat=total(hybrid_remat), example_train_hetero=hetero_launches,
-                   example_elastic=elastic_launches, **sharded_launches)
+                   example_elastic=elastic_launches, **sharded_launches, **model_launches)
     stray = {p: c["lru_scan_bwd"] for p, c in by_path.items() if c.get("lru_scan_bwd")
-             and p not in ("train_parity", "train_hybrid", "train_hybrid_remat")}
+             and p not in ("train_parity", "train_hybrid", "train_hybrid_remat",
+                           "model_sharded_train")}
     if stray:
         raise AssertionError(f"K3's backward launched off the training paths: {stray}")
     kernels = [

@@ -27,7 +27,10 @@ checkpoint of one package restores by name into the other's states:
   * a bfloat16 tensor is saved as its 2-byte bits in a ``|V2`` array, the
     layout numpy gives a JAX bfloat16 array; a bfloat16 template leaf takes
     any array of 2-byte bits back;
-  * ``restore`` puts each leaf on the device and dtype of the template's.
+  * ``restore`` puts each leaf on the device and dtype of the template's;
+  * a DTensor leaf (a sharded trainer's) is saved whole and restored into
+    the template's mesh and placements, so a checkpoint moves between a
+    sharded run and an unsharded one.
 """
 from __future__ import annotations
 
@@ -39,6 +42,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..device import is_dtensor
 
 MANIFEST = "manifest.json"
 _BITS16 = np.dtype("V2")  # numpy's spelling of a bfloat16 array on disk
@@ -84,9 +89,12 @@ def _unflatten(tree: Any, leaves) -> Any:
 
 
 def _snapshot(leaf: Any) -> np.ndarray:
-    """A host copy of one leaf, taken now."""
+    """A host copy of one leaf, taken now; a DTensor's whole (a collective:
+    every rank of its mesh saves)."""
     if isinstance(leaf, torch.Generator):
         return leaf.get_state().numpy()
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         host = leaf.detach().to("cpu", copy=True)
         if host.dtype == torch.bfloat16:
@@ -123,7 +131,8 @@ def _dtype_matches(arr: np.ndarray, leaf: Any, want: Optional[np.dtype]) -> bool
 
 def _place(arr: np.ndarray, leaf: Any) -> Any:
     """The saved ``arr`` in the template leaf's kind: a tensor on its device
-    and in its dtype, a new generator on its device, else the array."""
+    and in its dtype (a DTensor on its mesh, in its placements), a new
+    generator on its device, else the array."""
     if isinstance(leaf, torch.Generator):
         gen = torch.Generator(device=leaf.device)
         gen.set_state(torch.from_numpy(np.asarray(arr, np.uint8, order="C")))
@@ -134,6 +143,11 @@ def _place(arr: np.ndarray, leaf: Any) -> Any:
         host = torch.from_numpy(np.asarray(arr, order="C").view(np.int16)).view(torch.bfloat16)
     else:
         host = torch.from_numpy(np.asarray(arr, order="C"))
+    if is_dtensor(leaf):
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(host.to(device=leaf.device, dtype=leaf.dtype), leaf.device_mesh,
+                                 leaf.placements, src_data_rank=None)
     return host.to(device=leaf.device, dtype=leaf.dtype)
 
 

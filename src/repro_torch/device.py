@@ -51,3 +51,29 @@ def host_constant(values, device, dtype=torch.float32) -> torch.Tensor:
     if device.type != "cuda":
         return x.to(device)
     return x.pin_memory().to(device, non_blocking=True)
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor``.  DTensor's module is looked up, not
+    imported: while nothing has imported it, no DTensor exists."""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def refuse_dtensor(what: str, *xs) -> None:
+    """The kernel wrappers' refusal of a ``DTensor``: a kernel takes local
+    tensors, so its caller enters ``local_map`` first (``models.layers``,
+    ``models.recurrent``).  Nothing is converted or run in its place."""
+    for x in xs:
+        if is_dtensor(x):
+            raise TypeError(f"{what} was handed a DTensor ({tuple(x.placements)} on "
+                            f"{x.device_mesh}); call it on local tensors under local_map")
+
+
+def local(x):
+    """A ``DTensor``'s local shard, read as the attribute that holds it (no
+    dispatch, so a dispatch mode such as a checkpoint policy may call it);
+    any other tensor as it is."""
+    return x._local_tensor if is_dtensor(x) else x

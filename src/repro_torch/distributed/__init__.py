@@ -9,8 +9,10 @@ Two sharding concerns are easy to conflate.  Estimator fleet sharding
 splits the Bayesian estimator's worker axis K across the ranks of a
 ``workers`` ``DeviceMesh``: thread it through
 ``sched.SchedulerConfig(mesh=...)`` or ``core.gibbs.*(sharding=...)``.
-Model-tensor sharding (the reference's ``repro.distributed.sharding``, the
-model stack's mesh rules) is not ported yet.
+Model-tensor sharding (``repro_torch.distributed.sharding``, the
+counterpart of ``repro.distributed.sharding``) maps the model's parameters
+and caches onto a (pod,) data x model ``DeviceMesh`` as DTensors; the model
+stack takes it through ``models.MeshInfo``.
 """
 from repro_torch.sharding import ShardingConfig
 

@@ -54,6 +54,12 @@
 // reads nothing; inside a chunk, rows past len_b are neither copied nor
 // counted.  Output is acc / max(l, 1e-30), as in the Pallas kernel, so a
 // sequence of length 0 gives zeros.
+//
+// Given a pointer, the combine also writes each (b, h)'s log-sum-exp of
+// its scaled scores, M + log l in float32 (-inf for an empty row set): what
+// a decode over a cache split by rows across ranks needs to merge the
+// ranks' outputs (models/layers.py, _decode_on_mesh).  The Pallas kernel
+// has no such output; it adds one store a (b, h), by one thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -319,13 +325,15 @@ template <int G, int D, typename TQ>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const int* __restrict__ length, const float* __restrict__ part_m,
                       const float* __restrict__ part_l, const float* __restrict__ part_acc,
-                      TQ* __restrict__ out, int kvh, int s, int n_chunks) {
+                      TQ* __restrict__ out, float* __restrict__ lse, int kvh, int s,
+                      int n_chunks) {
   constexpr int kTileD = D < kCombineD ? D : kCombineD;
   constexpr int kGroups = kThreads / kTileD;
   constexpr int kAhead = 8;
   extern __shared__ float w_s[];  // (n_chunks,)
   __shared__ float red[kGroups][kTileD];
   __shared__ float l_total;
+  __shared__ float m_total;
   const int g = blockIdx.y;
   const int bk = blockIdx.z;  // b * KVH + kh
   const int b = bk / kvh;
@@ -354,9 +362,14 @@ decode_combine_kernel(const int* __restrict__ length, const float* __restrict__ 
       l += w * part_l[(base + c) * G + g];
     }
     l = warp_sum(l);
-    if (tid == 0) l_total = l;
+    if (tid == 0) {
+      l_total = l;
+      m_total = m;
+    }
   }
   __syncthreads();
+  if (lse != nullptr && blockIdx.x == 0 && tid == 0)  // -inf + log 0 = -inf when empty
+    lse[static_cast<size_t>(bk) * G + g] = m_total + logf(l_total);
   float a = 0.f;
 #pragma unroll
   for (int i = 0; i < kAhead; ++i) {
@@ -375,7 +388,7 @@ decode_combine_kernel(const int* __restrict__ length, const float* __restrict__ 
 
 template <int G, int D, typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const int* length, float* part_m,
-           float* part_l, float* part_acc, void* out, int b, int kvh, int s,
+           float* part_l, float* part_acc, void* out, float* lse, int b, int kvh, int s,
            cudaStream_t stream) {
   using L = Layout<G, D, TKV>;
   const int n_chunks = (s + kChunk - 1) / kChunk;
@@ -402,45 +415,49 @@ int launch(const void* q, const void* k, const void* v, const int* length, float
   constexpr int kTileD = D < kCombineD ? D : kCombineD;
   decode_combine_kernel<G, D, TQ><<<dim3(D / kTileD, G, b * kvh), kThreads,
                                     n_chunks * sizeof(float), stream>>>(
-      length, part_m, part_l, part_acc, static_cast<TQ*>(out), kvh, s, n_chunks);
+      length, part_m, part_l, part_acc, static_cast<TQ*>(out), lse, kvh, s, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int G, int D>
 int launch_types(const void* q, const void* k, const void* v, const int* length, float* part_m,
-                 float* part_l, float* part_acc, void* out, int b, int kvh, int s, int q_bf16,
-                 int kv_bf16, cudaStream_t st) {
+                 float* part_l, float* part_acc, void* out, float* lse, int b, int kvh, int s,
+                 int q_bf16, int kv_bf16, cudaStream_t st) {
   using bf16 = __nv_bfloat16;
   if (q_bf16 && kv_bf16)
-    return launch<G, D, bf16, bf16>(q, k, v, length, part_m, part_l, part_acc, out, b, kvh, s, st);
+    return launch<G, D, bf16, bf16>(q, k, v, length, part_m, part_l, part_acc, out, lse, b, kvh,
+                                    s, st);
   if (q_bf16)
-    return launch<G, D, bf16, float>(q, k, v, length, part_m, part_l, part_acc, out, b, kvh, s, st);
+    return launch<G, D, bf16, float>(q, k, v, length, part_m, part_l, part_acc, out, lse, b, kvh,
+                                     s, st);
   if (kv_bf16)
-    return launch<G, D, float, bf16>(q, k, v, length, part_m, part_l, part_acc, out, b, kvh, s, st);
-  return launch<G, D, float, float>(q, k, v, length, part_m, part_l, part_acc, out, b, kvh, s, st);
+    return launch<G, D, float, bf16>(q, k, v, length, part_m, part_l, part_acc, out, lse, b, kvh,
+                                     s, st);
+  return launch<G, D, float, float>(q, k, v, length, part_m, part_l, part_acc, out, lse, b, kvh,
+                                    s, st);
 }
 
 }  // namespace
 
 // q (B, H, D); k, v (B, S, KVH, D), 16-byte aligned; length (B,) int32; out
 // (B, H, D) in q's type; part_m, part_l (B, KVH, ceil(S / 64), G) and
-// part_acc (B, KVH, ceil(S / 64), G, D) float32 scratch.  All contiguous on
-// the current device.  q_bf16 and kv_bf16 select bfloat16 (1) or float32 (0).
+// part_acc (B, KVH, ceil(S / 64), G, D) float32 scratch; lse null, or (B, H)
+// float32 for the log-sum-exps.  All contiguous on the current device.  q_bf16 and kv_bf16 select bfloat16 (1) or float32 (0).
 // G = H / KVH and D must be one of the instantiated pairs below (the Python
 // wrapper's INSTANTIATED); any other returns cudaErrorInvalidValue.  Launches
 // on `stream` and returns cudaGetLastError(), so a refused launch is reported.
 extern "C" int decode_attention(const void* q, const void* k, const void* v, const int* length,
                                 float* part_m, float* part_l, float* part_acc, void* out,
-                                int b, int h, int kvh, int d, int s, int q_bf16, int kv_bf16,
-                                void* stream) {
+                                float* lse, int b, int h, int kvh, int d, int s, int q_bf16,
+                                int kv_bf16, void* stream) {
   if (b <= 0 || s <= 0) return static_cast<int>(cudaSuccess);
   if (kvh <= 0 || h % kvh != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = h / kvh;
 #define DECODE_CASE(G, D)                                                                    \
   if (g == G && d == D)                                                                      \
-    return launch_types<G, D>(q, k, v, length, part_m, part_l, part_acc, out, b, kvh, s, q_bf16, \
-                              kv_bf16, st);
+    return launch_types<G, D>(q, k, v, length, part_m, part_l, part_acc, out, lse, b, kvh, s,   \
+                              q_bf16, kv_bf16, st);
   DECODE_CASE(10, 256)  // recurrentgemma-2b
   DECODE_CASE(8, 64)    // tinyllama-1.1b
   DECODE_CASE(3, 64)    // smollm-135m and granite-moe-3b-a800m

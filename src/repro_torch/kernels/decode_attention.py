@@ -11,6 +11,12 @@ goes to the hand-written kernel (``csrc/decode_attention.cu``), which raises
 if it cannot be built or launched; a CPU tensor goes to the plain PyTorch
 version ``decode_attention_plain``, which the tests and the on-card
 comparison also use.
+
+``return_lse=True`` also returns each (b, h)'s log-sum-exp of its scaled
+scores (float32 (B, H), -inf for an empty row set): a decode whose cache is
+split by rows across ranks merges the ranks' outputs by it
+(``models.layers._decode_on_mesh``).  A DTensor is refused: the caller runs
+the kernel on local tensors under ``local_map``.
 """
 from __future__ import annotations
 
@@ -20,12 +26,13 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from ..device import refuse_dtensor
 from .build import CudaKernel
 
 _KERNEL = CudaKernel(
     "decode_attention",
     "decode_attention.cu",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 )
 CHUNK = 64  # cache rows per block of the kernel's first pass (kChunk)
 # The (G, D) = (query heads per kv head, head dimension) pairs the kernel is
@@ -38,11 +45,13 @@ INSTANTIATED = frozenset({(10, 256), (8, 64), (3, 64), (7, 128), (1, 64), (7, 64
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, length: Optional[Tensor] = None) -> Tensor:
+def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, length: Optional[Tensor] = None, *,
+                           return_lse: bool = False):
     """Plain PyTorch version of K2, as ``repro.kernels.ref.decode_attention_ref``.
 
     q (B, H, D); k, v (B, S, KVH, D); length (B,) valid rows of each cache,
-    or None for all S.  Returns (B, H, D) in q's dtype.
+    or None for all S.  Returns (B, H, D) in q's dtype, and with
+    ``return_lse`` the (B, H) float32 log-sum-exps of the scaled scores too.
     """
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -52,18 +61,25 @@ def decode_attention_plain(q: Tensor, k: Tensor, v: Tensor, length: Optional[Ten
         w = torch.softmax(logits, dim=-1)
     else:
         invalid = (torch.arange(s, device=q.device)[None, :] >= length[:, None])[:, None, None, :]
-        w = torch.softmax(logits.masked_fill(invalid, float("-inf")), dim=-1)
+        logits = logits.masked_fill(invalid, float("-inf"))
+        w = torch.softmax(logits, dim=-1)
         # An empty row set gives zeros, as the kernels' acc / max(l, 1e-30):
         # its softmax over all -inf is NaN, and every one of its rows is masked.
         w = w.masked_fill(invalid, 0.0)
-    out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", w, v.float()).reshape(b, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, h)
 
 
-def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, length: Tensor) -> Tensor:
+def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, length: Tensor, *,
+                          return_lse: bool = False):
     """Launch K2 on the current stream: q (B, H, D) and k, v (B, S, KVH, D),
     each float32 or bfloat16 (k and v alike), length (B,) on one CUDA device,
-    with (H / KVH, D) in ``INSTANTIATED``.  Returns (B, H, D) in q's dtype."""
+    with (H / KVH, D) in ``INSTANTIATED``.  Returns (B, H, D) in q's dtype,
+    and with ``return_lse`` the (B, H) float32 log-sum-exps, which the
+    combine launch writes."""
+    refuse_dtensor("decode_attention_cuda", q, k, v, length)
     b, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if k.shape != (b, s, kvh, d) or v.shape != k.shape or length.shape != (b,) or h % kvh:
@@ -88,24 +104,29 @@ def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, length: Tensor) -> Te
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((b, kvh, n_chunks, g, d), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         _KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(), b, h, kvh, d, s,
+            part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, h, kvh, d, s,
             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), stream,
         )
-    return out
+    return out if lse is None else (out, lse)
 
 
-def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Tensor) -> Tensor:
-    """Flash-decode GQA attention (B, H, D) x (B, S, KVH, D) -> (B, H, D).
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Tensor, *,
+                     return_lse: bool = False):
+    """Flash-decode GQA attention (B, H, D) x (B, S, KVH, D) -> (B, H, D)
+    (and the (B, H) log-sum-exps with ``return_lse``).
 
     Same signature as ``decode_attention_pallas``.  CUDA tensors run the
-    kernel; CPU tensors run ``decode_attention_plain``.
+    kernel; CPU tensors run ``decode_attention_plain``; a DTensor is refused.
     """
+    refuse_dtensor("decode_attention", q, k, v, length)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, length)
+        return decode_attention_plain(q, k, v, length, return_lse=return_lse)
     if not q.is_cuda:
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    return decode_attention_cuda(q, k, v, length)
+    return decode_attention_cuda(q, k, v, length, return_lse=return_lse)

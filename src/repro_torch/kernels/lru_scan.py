@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from ..device import refuse_dtensor
 from .build import CudaKernel
 
 _KERNEL = CudaKernel(
@@ -101,8 +102,9 @@ def lru_scan_backward_plain(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor):
 
 
 def _check(what: str, a: Tensor, others, h0: Tensor) -> None:
-    """The launchers' refusals: one CUDA device; a and ``others`` (B, T, R)
-    all float32 or all bfloat16; h0 (B, R)."""
+    """The launchers' refusals: no DTensor; one CUDA device; a and
+    ``others`` (B, T, R) all float32 or all bfloat16; h0 (B, R)."""
+    refuse_dtensor(what, a, *others, h0)
     if not all(x.is_cuda and x.device == a.device for x in (a, *others, h0)):
         raise ValueError(f"{what} takes tensors on one CUDA device")
     if a.dtype not in (torch.float32, torch.bfloat16) or any(x.dtype != a.dtype for x in others):
@@ -198,7 +200,8 @@ def lru_scan(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     """h_t = a_t h_{t-1} + b_t along T, h0 folded in.  Same signature as
     ``lru_scan_pallas``.  CUDA tensors run the kernel; CPU tensors run
     ``lru_scan_plain``; under autograd with an input that requires a
-    gradient both go through ``LruScan``."""
+    gradient both go through ``LruScan``.  A DTensor is refused."""
+    refuse_dtensor("lru_scan", a, b, h0)
     if a.device.type != "cpu" and not a.is_cuda:
         raise ValueError(f"lru_scan: no kernel for device {a.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):

@@ -151,12 +151,15 @@ def posterior_grid_beta(
     return _single_mode(grid, t, f, mu, lam, alpha, prior, mask, 1)
 
 
-def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Optional[Tensor] = None) -> Tensor:
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Optional[Tensor] = None, *,
+                     return_lse: bool = False):
     """Flash-decode GQA attention (B,H,D) x (B,S,KVH,D) -> (B,H,D); length
-    (B,) valid cache rows, all S by default."""
+    (B,) valid cache rows, all S by default.  With ``return_lse`` also the
+    (B, H) float32 log-sum-exps of the scaled scores (-inf where no row is
+    valid)."""
     if length is None:
         length = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
-    return _decode_attention(q, k, v, length)
+    return _decode_attention(q, k, v, length, return_lse=return_lse)
 
 
 def lru_scan(a: Tensor, b: Tensor, h0: Optional[Tensor] = None) -> Tensor:

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from ..device import refuse_dtensor
 from .build import CudaKernel
 
 _KERNEL = CudaKernel(
@@ -155,8 +156,10 @@ def posterior_grid_fleet(
     Same signature as ``posterior_grid_fleet_pallas``, plus the reference's
     ``symmetric_grid`` (``moments.log_posterior_grid``), which the Pallas
     route ignored.  CUDA tensors run the kernel in the mode it picks; CPU
-    tensors run ``posterior_grid_plain`` in the same form.
+    tensors run ``posterior_grid_plain`` in the same form; a DTensor is
+    refused.
     """
+    refuse_dtensor("posterior_grid_fleet", grid, t, f, mask, mu, lam, alpha, beta)
     if t.device.type == "cpu":
         return posterior_grid_plain(
             grid, t, f, mask, mu, lam, alpha, beta,

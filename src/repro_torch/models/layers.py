@@ -9,33 +9,148 @@ query chunks, as the reference computes it outside Pallas; decode attention,
 over the self cache and over the cross cache alike, goes through
 ``kernels.ops.decode_attention`` (K2).  Caches are updated in place and
 returned, which spares a copy of every cache per step.
+
+On a mesh (``ApplyCtx.mesh_info``) the tensors are ``DTensor``s of
+``torch.distributed.tensor`` where the reference's are GSPMD-sharded arrays:
+``constrain_batch`` and ``_seq_shard`` redistribute to the spec they name,
+as ``with_sharding_constraint`` does, and K2 runs under ``local_map`` on each
+shard of the cache (``_decode_on_mesh``).  Without a mesh every function
+dispatches what it did before the mesh existed.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
 
 from ..configs.base import ModelConfig
+from ..device import is_dtensor
+from ..distributed.sharding import PartitionSpec, axes_size, placements
 from ..kernels import ops
 from .params import P
 
 NEG_INF = -1e30
 
 
+class MeshInfo(NamedTuple):
+    """Distribution context threaded through the model (None on one device)."""
+
+    mesh: Any  # torch.distributed.device_mesh.DeviceMesh with named dims
+    batch_axes: Tuple[str, ...]  # ("pod", "data") or ("data",)
+    model_axis: Optional[str]  # "model"
+
+    def size(self, axes) -> int:
+        """The number of shards over ``axes`` (a name or names)."""
+        return axes_size(self.mesh, (axes,) if isinstance(axes, str) else axes)
+
+    def split(self, axes, n: int):
+        """``axes`` when they split ``n`` evenly, else None (replicated): the
+        spec entry of a dim of size ``n``."""
+        return axes if axes and n % self.size(axes) == 0 else None
+
+    def placements(self, *spec) -> tuple:
+        """The DTensor placements of a spec given as its entries."""
+        return placements(PartitionSpec(*spec), self.mesh)
+
+
 @dataclasses.dataclass(frozen=True)
 class ApplyCtx:
-    """Per-call context: execution mode, the query chunk of attention, and
-    the layer-cycle rematerialisation of training (``transformer._run_stack``)."""
+    """Per-call context: execution mode, distribution info, the query chunk
+    of attention, and the layer-cycle rematerialisation of training
+    (``transformer._run_stack``)."""
 
     mode: str = "train"  # train | prefill | decode
+    mesh_info: Optional[MeshInfo] = None
     q_chunk: int = 2048
     # layer-cycle remat in train mode: none | full (recompute the cycle) | dots
     # (keep the weight products) | outs (keep the attention and FFN outputs)
     remat: str = "none"
+    # The reference's perf options for a mesh.  seq_shard_attention shards
+    # attention's (and the mLSTM's) query chunks over the model axis
+    # (context parallelism) where the heads do not divide it; seq_parallel
+    # shards the residual stream between blocks over (data, model) on the
+    # sequence; fuse_projections runs q/k/v (and the MLP's gate and up) as
+    # one product on concatenated weights.
+    seq_shard_attention: bool = False
+    seq_parallel: bool = False
+    fuse_projections: bool = False
+
+
+@contextlib.contextmanager
+def mesh_scope(ctx: Optional[ApplyCtx]):
+    """Around a model call on a mesh: plain tensors made inside it (positions,
+    masks, rope's frequencies, scalars) count as replicated ``DTensor``s.
+    Re-entrant; without a mesh it does nothing."""
+    if ctx is None or ctx.mesh_info is None or torch._C._get_dtensor_allow_implicit_replication():
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        yield
+
+
+def constrain(x: Tensor, mi: MeshInfo, spec) -> Tensor:
+    """``x`` redistributed to ``spec``; a plain tensor, which every rank holds
+    whole, becomes a DTensor of it with no communication."""
+    pl = mi.placements(*spec)
+    if is_dtensor(x):
+        # A redistribution (ours, or one inside an earlier operation) leaves
+        # the local shard contiguous while the DTensor may keep other
+        # strides; a later reshape decided on those strides would then fail
+        # on the shard.  Made contiguous, the two agree.
+        return x.redistribute(mi.mesh, pl).contiguous()
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(x, mi.mesh, pl, src_data_rank=None)
+
+
+def constrain_batch(x: Tensor, ctx: ApplyCtx, tail=None) -> Tensor:
+    """Pin the batch dim to the data axes, the rest replicated unless ``tail``
+    names their mesh axes (the activations' sharding constraint).  Without a
+    mesh, ``x`` itself."""
+    mi = ctx.mesh_info
+    if mi is None or not mi.batch_axes:
+        return x
+    tail = tail if tail is not None else [None] * (x.ndim - 1)
+    return constrain(x, mi, (mi.batch_axes, *tail))
+
+
+def write_state(dst: Tensor, src: Tensor) -> None:
+    """``dst.copy_(src)``; on a mesh ``src`` is first redistributed to
+    ``dst``'s placements, so the copy is each shard's own."""
+    if is_dtensor(dst):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: Tensor, name: str) -> Tensor:
+    """A named identity that the "outs" policy can see: one copy of x."""
+    return x.clone()
+
+
+_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None),
+                                   setup_context=lambda ctx, inputs, output: None)
+
+
+def checkpoint_name(x: Tensor, name: str, ctx: ApplyCtx) -> Tensor:
+    """Name ``x`` for remat "outs"; under any other setting ``x`` itself, with
+    no operation dispatched.  ``transformer._run_stack`` hands the blocks a
+    ctx whose remat is "outs" only inside a checkpointed cycle.  A DTensor
+    is named shard by shard, under ``local_map``."""
+    if ctx.remat != "outs":
+        return x
+    if is_dtensor(x):
+        from torch.distributed.tensor.experimental import local_map
+
+        return local_map(_checkpoint_name, out_placements=(x.placements,),
+                         in_placements=(x.placements, None), device_mesh=x.device_mesh)(x, name)
+    return _checkpoint_name(x, name)
 
 
 # ---------------------------------------------------------------------------
@@ -92,14 +207,21 @@ def mlp_spec(cfg: ModelConfig) -> Dict[str, P]:
     return spec
 
 
-def mlp(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor) -> Tensor:
-    up = x @ params["wi"]
-    if cfg.use_bias:
-        up = up + params["bi"]
-    if cfg.act in ("swiglu", "geglu"):
-        h = activate(cfg.act, x @ params["wg"], up)
+def mlp(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor,
+        ctx: Optional[ApplyCtx] = None) -> Tensor:
+    gated = cfg.act in ("swiglu", "geglu")
+    if ctx is not None and ctx.fuse_projections and gated:
+        f = cfg.d_ff
+        both = x @ torch.cat([params["wi"], params["wg"]], dim=1)
+        up, gate = both[..., :f], both[..., f:]
+        if cfg.use_bias:
+            up = up + params["bi"]
+        h = activate(cfg.act, gate, up)
     else:
-        h = activate(cfg.act, up, up)
+        up = x @ params["wi"]
+        if cfg.use_bias:
+            up = up + params["bi"]
+        h = activate(cfg.act, x @ params["wg"], up) if gated else activate(cfg.act, up, up)
     y = h @ params["wo"]
     return y + params["bo"] if cfg.use_bias else y
 
@@ -132,12 +254,26 @@ def _project(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor, name: str) 
     return y + params["b" + name] if cfg.use_bias else y
 
 
-def _attn_chunk(q: Tensor, k: Tensor, v: Tensor, mask: Tensor) -> Tensor:
+def _seq_shard(x: Tensor, ctx: ApplyCtx, dim: int) -> Tensor:
+    """Shard ``dim`` over the model axis (context parallelism) when
+    ``seq_shard_attention`` is on and it divides; the batch over the data
+    axes when it divides them."""
+    mi = ctx.mesh_info
+    if not ctx.seq_shard_attention or mi is None or mi.split(mi.model_axis, x.shape[dim]) is None:
+        return x
+    spec = [None] * x.ndim
+    spec[0] = mi.split(mi.batch_axes, x.shape[0])
+    spec[dim] = mi.model_axis
+    return constrain(x, mi, spec)
+
+
+def _attn_chunk(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, ctx: ApplyCtx) -> Tensor:
     """q (B, qc, KVH, G, hd) f32 pre-scaled; k (B, S, KVH, hd) f32; v in the
     model dtype; mask (qc, S) additive.  Returns (B, qc, KVH, G, hd)."""
+    q = _seq_shard(q, ctx, 1)
     logits = torch.einsum("bqkgd,bskd->bkgqs", q, k) + mask
     w = torch.softmax(logits, dim=-1)
-    return torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v)
+    return _seq_shard(torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype), v), ctx, 1)
 
 
 def _full_attention(
@@ -147,7 +283,7 @@ def _full_attention(
     """Chunked-query attention, causal or not: q (B, T, H, hd), k, v
     (B, S, KVH, hd) post-rope.  Returns (B, T, H, hd)."""
     b, t, h, hd = q.shape
-    kvh = cfg.num_kv_heads
+    kvh = k.shape[2]
     qg = (q * hd**-0.5).reshape(b, t, kvh, h // kvh, hd).float()
     k32 = k.float()
 
@@ -164,11 +300,37 @@ def _full_attention(
     if t % chunk != 0:
         chunk = t  # one chunk for ragged lengths, as the reference
     outs = [
-        _attn_chunk(qg[:, i : i + chunk], k32, v, mask_for(q_positions[i : i + chunk]))
+        _attn_chunk(qg[:, i : i + chunk], k32, v, mask_for(q_positions[i : i + chunk]), ctx)
         for i in range(0, t, chunk)
     ]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.reshape(b, t, h, hd).to(q.dtype)
+
+
+def pin_heads(x: Tensor, mi: MeshInfo, dim: int, n: int) -> Tensor:
+    """``x`` with the batch (dim 0) over the data axes and its head axis
+    ``dim`` over the model axis when ``n`` (the heads that must stay
+    together: attention's KV heads) divides it, else replicated.  Pinned
+    here, no reshape or product of a sharded head axis is left to DTensor's
+    propagation (which can fail, or gather silently)."""
+    spec = [None] * x.ndim
+    spec[0] = mi.split(mi.batch_axes, x.shape[0])
+    spec[dim] = mi.split(mi.model_axis, n)
+    return constrain(x, mi, spec)
+
+
+def _full_attention_by_heads(cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor, *,
+                             ctx: ApplyCtx, **kw) -> Tensor:
+    """``_full_attention`` on a mesh whose model axis splits the KV heads:
+    each shard attends with its own heads, under ``local_map`` (every query
+    head is on its KV head's shard, ``pin_heads``)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    inner = dataclasses.replace(ctx, mesh_info=None)
+    fn = lambda q, k, v: _full_attention(cfg, q, k, v, ctx=inner, **kw)
+    return local_map(fn, out_placements=(q.placements,),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     device_mesh=ctx.mesh_info.mesh)(q, k, v)
 
 
 def init_attention_cache(
@@ -201,55 +363,175 @@ def attention(
     ``kv_x``, ropes neither q nor k, and is not causal; prefill writes the whole
     cross cache, and a decode step reads all of it and writes nothing."""
     b, t, _ = x.shape
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
     cross = is_cross or kv_x is not None
     if ctx.mode != "decode" and cross and kv_x is None:
         raise ValueError("cross attention outside decode requires kv_x (enc_out)")
-    q = _project(cfg, params, x, "q")
     k = v = None  # a decode step's cross attention makes no new k, v
-    if not (cross and kv_x is None):
-        src = x if kv_x is None else kv_x
-        k, v = _project(cfg, params, src, "k"), _project(cfg, params, src, "v")
+    if ctx.fuse_projections and not cross and params["wq"].shape[-1] == params["wk"].shape[-1]:
+        # one product on the concatenated weights (D, H + 2 KVH, hd)
+        wqkv = torch.cat([params["wq"], params["wk"], params["wv"]], dim=1)
+        qkv = torch.einsum("btd,dhk->bthk", x, wqkv)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kvh], qkv[:, :, h + kvh:]
+        if cfg.use_bias:
+            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    else:
+        q = _project(cfg, params, x, "q")
+        if not (cross and kv_x is None):
+            src = x if kv_x is None else kv_x
+            k, v = _project(cfg, params, src, "k"), _project(cfg, params, src, "v")
     if positions is None:
         positions = torch.arange(t, device=x.device)
     if not cross:  # cross attention keeps the encoder's own representation
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    mi = ctx.mesh_info
+    if mi is not None:  # every query head on the shard of its KV head
+        q = pin_heads(q, mi, 2, kvh)
+        if k is not None:
+            k, v = pin_heads(k, mi, 2, kvh), pin_heads(v, mi, 2, kvh)
 
     if ctx.mode in ("train", "prefill"):
         kv_pos = torch.arange(k.shape[1], device=x.device)
-        out = _full_attention(cfg, q, k, v, causal=causal and not cross, window=window,
-                              q_positions=positions, kv_positions=kv_pos, ctx=ctx)
+        full = _full_attention_by_heads if mi is not None and mi.split(mi.model_axis, kvh) \
+            else _full_attention
+        out = full(cfg, q, k, v, causal=causal and not cross, window=window,
+                   q_positions=positions, kv_positions=kv_pos, ctx=ctx)
         if ctx.mode == "prefill" and cache is not None:
-            s = cache["k"].shape[1]
-            if cross:
-                cache["k"].copy_(k)
-                cache["v"].copy_(v)
-            elif window > 0 and t > s:
-                # keep the trailing window, placed at ring slots pos % s
-                shift = (t - s) % s
-                cache["k"].copy_(torch.roll(k[:, -s:], shift, dims=1))
-                cache["v"].copy_(torch.roll(v[:, -s:], shift, dims=1))
+            if mi is not None:
+                _prefill_cache_on_mesh(cache, k, v, t, window, cross)
             else:
-                for name, new in (("k", k), ("v", v)):
-                    cache[name][:, t:].zero_()
-                    cache[name][:, :t].copy_(new)
+                _prefill_cache(cache, k, v, t, window, cross)
     elif ctx.mode == "decode":
         assert cache is not None and length is not None
-        s = cache["k"].shape[1]
-        if cross:  # every row of the cross cache is valid
-            valid = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        if mi is not None:
+            out = _decode_on_mesh(q[:, 0], k, v, cache, length, window, cross, mi)[:, None]
         else:
-            # the ring slot of a window, else the next row; a device index, no sync
-            slot = (length % s if window > 0 else length).long().reshape(1)
-            cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-            cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-            # The valid rows are a prefix of the cache: rows 0..length before a
-            # ring wraps, all s after; softmax ignores their order, and the
-            # cached keys carry their RoPE already.
-            valid = torch.clamp(length + 1, max=s).to(torch.int32).reshape(1).expand(b)
-        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], valid)[:, None]
+            out = _decode(q[:, 0], k, v, cache, length, window, cross)[:, None]
     else:
         raise ValueError(ctx.mode)
 
     y = torch.einsum("bthk,hkd->btd", out.to(x.dtype), params["wo"])
     return y, cache
+
+
+def _cache_rows(k: Tensor, s: int, t: int, window: int, cross: bool):
+    """How a prefill of ``t`` rows fills an ``s``-row cache: (rows, shift) with
+    rows the part of k kept and shift its roll onto the ring's slots pos %
+    s; (k, None) when the rows fill a prefix of the cache."""
+    if not cross and window > 0 and t > s:
+        return k[:, -s:], (t - s) % s  # the trailing window
+    return k, None
+
+
+def _prefill_cache(cache, k: Tensor, v: Tensor, t: int, window: int, cross: bool) -> None:
+    s = cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        rows, shift = _cache_rows(new, s, t, window, cross)
+        if cross:
+            cache[name].copy_(rows)
+        elif shift is not None:
+            cache[name].copy_(torch.roll(rows, shift, dims=1))
+        else:
+            cache[name][:, t:].zero_()
+            cache[name][:, :t].copy_(rows)
+
+
+def _prefill_cache_on_mesh(cache, k: Tensor, v: Tensor, t: int, window: int,
+                           cross: bool) -> None:
+    """The prefill's cache write on a mesh: the whole (B, S, KVH, hd) content
+    is built as the unsharded path writes it, then each shard copies its
+    part (a cache sharded over seq takes its own rows)."""
+    s = cache["k"].shape[1]
+    for name, new in (("k", k), ("v", v)):
+        rows, shift = _cache_rows(new.to(cache[name].dtype), s, t, window, cross)
+        if shift is not None:
+            rows = torch.roll(rows, shift, dims=1)
+        elif rows.shape[1] < s:
+            pad = torch.zeros((rows.shape[0], s - rows.shape[1], *rows.shape[2:]),
+                              dtype=rows.dtype, device=rows.device)
+            rows = torch.cat([rows, pad], dim=1)
+        write_state(cache[name], rows)
+
+
+def _decode(q: Tensor, k: Optional[Tensor], v: Optional[Tensor], cache, length: Tensor,
+            window: int, cross: bool) -> Tensor:
+    """One decode step's attention on one device: the new row written at its
+    slot, then K2 over the valid rows.  q (B, H, hd); returns (B, H, hd)."""
+    b = q.shape[0]
+    s = cache["k"].shape[1]
+    if cross:  # every row of the cross cache is valid
+        valid = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    else:
+        # the ring slot of a window, else the next row; a device index, no sync
+        slot = (length % s if window > 0 else length).long().reshape(1)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        # The valid rows are a prefix of the cache: rows 0..length before a
+        # ring wraps, all s after; softmax ignores their order, and the
+        # cached keys carry their RoPE already.
+        valid = torch.clamp(length + 1, max=s).to(torch.int32).reshape(1).expand(b)
+    return ops.decode_attention(q, cache["k"], cache["v"], valid)
+
+
+def _decode_on_mesh(q: Tensor, k: Optional[Tensor], v: Optional[Tensor], cache,
+                    length: Tensor, window: int, cross: bool, mi: MeshInfo) -> Tensor:
+    """One decode step's attention over a sharded cache (B, S, KVH, hd).
+
+    Each shard writes the new row if it owns its slot, then runs K2 under
+    ``local_map`` on its own rows: with the KV heads over the model axis on
+    its heads; with the seq dim over it (the flash-decode fallback) on its
+    S / m rows, of which clamp(min(length + 1, S) - r S / m, 0, S / m) are
+    valid, and the shards' outputs are merged by their log-sum-exps over the
+    seq group (one max and one sum all-reduce).  A head_dim split (the last
+    resort of ``cache_rules``) is gathered for the kernel."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ck, cv = cache["k"], cache["v"]
+    s = ck.shape[1]
+    pl = tuple(Replicate() if p.is_shard(3) else p for p in ck.placements)
+    # the mesh dim that splits the rows (cache_rules: the model axis), if any
+    seq = next((m for m, p in enumerate(pl) if p.is_shard(1)), None)
+    s_loc = s if seq is None else s // int(mi.mesh.shape[seq])
+    lo = 0 if seq is None else mi.mesh.get_local_rank(seq) * s_loc
+    group = None if seq is None else mi.mesh.get_group(seq)
+    # q (B, H, hd): the cache's batch split, its kv heads' split on the heads
+    q_pl = tuple(Shard(1) if p.is_shard(2) else p if p.is_shard(0) else Replicate() for p in pl)
+    row_pl = tuple(Replicate() if p.is_shard(1) else p for p in ck.placements)
+    scalar = (Replicate(),) * len(pl)
+
+    if not cross:
+        slot = length % s if window > 0 else length
+
+        def write(c, new, slot):  # the shard that owns the slot writes it
+            idx = slot.long().reshape(1) - lo
+            own = (idx >= 0) & (idx < s_loc)
+            idx = torch.clamp(idx, 0, s_loc - 1)
+            c.index_copy_(1, idx, torch.where(own, new, c.index_select(1, idx)))
+            return c
+
+        for c, new in ((ck, k), (cv, v)):
+            local_map(write, out_placements=(c.placements,),
+                      in_placements=(c.placements, row_pl, scalar),
+                      device_mesh=mi.mesh, redistribute_inputs=True)(
+                c, new.to(c.dtype), slot)
+        total = torch.clamp(length + 1, max=s)
+    else:
+        total = torch.full((), s, dtype=torch.int32, device=q.device)
+
+    def attend(q, k, v, total):
+        valid = torch.clamp(total - lo, 0, s_loc).to(torch.int32).reshape(1).expand(q.shape[0])
+        if group is None:
+            return ops.decode_attention(q, k, v, valid)
+        out, lse = ops.decode_attention(q, k, v, valid, return_lse=True)
+        top = lse.clone()
+        torch.distributed.all_reduce(top, torch.distributed.ReduceOp.MAX, group=group)
+        w = torch.exp(lse - top)[..., None]  # 0 for a shard with no valid row
+        acc = torch.cat([w * out.float(), w], dim=-1)
+        torch.distributed.all_reduce(acc, group=group)
+        return (acc[..., :-1] / acc[..., -1:]).to(q.dtype)
+
+    return local_map(attend, out_placements=(q_pl,),
+                     in_placements=(q_pl, pl, pl, scalar),
+                     device_mesh=mi.mesh, redistribute_inputs=True)(q, ck, cv, total)

@@ -89,3 +89,17 @@ def init_params(spec: SpecTree, generator: torch.Generator, dtype=torch.float32,
 
 def param_count(spec: SpecTree) -> int:
     return sum(math.prod(p.shape) for p in leaves(spec))
+
+
+def abstract_params(spec: SpecTree, dtype=torch.float32) -> ParamTree:
+    """Shape-only stand-ins: tensors on the ``meta`` device (no allocation)."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=dtype, device="meta"), spec)
+
+
+def axes_tree(spec: SpecTree):
+    """Tree of logical-axes tuples, parallel to the parameter tree."""
+    return tree_map(lambda p: p.axes, spec)
+
+
+def param_bytes(spec: SpecTree, bytes_per_elem: int = 2) -> int:
+    return param_count(spec) * bytes_per_elem

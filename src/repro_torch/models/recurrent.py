@@ -11,7 +11,9 @@ The port's counterpart of ``repro.models.recurrent``.
     time on the device (no host read inside the loop); decode is one step.
   * RG-LRU: prefill and train run the linear recurrence h_t = a_t h_{t-1} +
     b_t through ``kernels.ops.lru_scan`` (K3); decode is its one elementwise
-    step on the float32 state.
+    step on the float32 state.  On a mesh K3 runs under ``local_map`` on each
+    shard's (batch, channel) block: the recurrence is per channel, so each
+    shard's scan is exact.
 
 Every block writes its cache's state in place in prefill and decode; the
 states are float32 whatever the parameters' dtype.
@@ -26,7 +28,7 @@ from torch import Tensor
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import NEG_INF, ApplyCtx
+from .layers import NEG_INF, ApplyCtx, MeshInfo, _seq_shard, pin_heads, write_state
 from .params import P
 
 # ---------------------------------------------------------------------------
@@ -48,7 +50,7 @@ def mlstm_spec(cfg: ModelConfig) -> Dict[str, P]:
     }
 
 
-def _mlstm_qkv(cfg: ModelConfig, params, x: Tensor):
+def _mlstm_qkv(cfg: ModelConfig, params, x: Tensor, mi: Optional[MeshInfo] = None):
     """q, k, v and the output gate o (B, H, T, hd) in x's dtype; log i and
     log f (B, H, T) in float32, cast after the gates are computed in x's
     dtype, as the reference casts them."""
@@ -63,6 +65,8 @@ def _mlstm_qkv(cfg: ModelConfig, params, x: Tensor):
     log_i = gates[..., :h].transpose(1, 2).float()
     log_f = F.logsigmoid(gates[..., h:]).transpose(1, 2).float()
     o = torch.sigmoid(torch.einsum("btd,dhk->bhtk", x, params["wog"]))
+    if mi is not None:  # each head's q, k, v, gates on one shard
+        q, k, v, log_i, log_f, o = (pin_heads(a, mi, 1, h) for a in (q, k, v, log_i, log_f, o))
     return q, k, v, log_i, log_f, o
 
 
@@ -71,19 +75,20 @@ def _mlstm_parallel(cfg: ModelConfig, params, x: Tensor, ctx: ApplyCtx):
     (one chunk of T when T is not a multiple of it).  Returns (y, (k, v,
     log_i, fcum)), what ``mlstm_final_state`` needs."""
     t = x.shape[1]
-    q, k, v, log_i, log_f, o = _mlstm_qkv(cfg, params, x)
+    q, k, v, log_i, log_f, o = _mlstm_qkv(cfg, params, x, ctx.mesh_info)
     fcum = torch.cumsum(log_f, dim=-1)  # (B, H, T): F_t = sum_{s <= t} log f_s
     k32, v32 = k.float(), v.float()
     pos = torch.arange(t, device=x.device)
 
     def chunk_out(q_c, fcum_c, tpos_c):
+        q_c = _seq_shard(q_c, ctx, 2)
         # the decay matrix D~[t, s] = F_t - F_s + log i_s for s <= t
         dmat = fcum_c[..., :, None] - fcum[..., None, :] + log_i[..., None, :]
         dmat = torch.where(tpos_c[:, None] >= pos[None, :], dmat, NEG_INF)
         m = torch.clamp(dmat.amax(dim=-1, keepdim=True), min=-1e30)  # (B, H, qc, 1)
         scores = torch.einsum("bhqk,bhsk->bhqs", q_c.float(), k32) * torch.exp(dmat - m)
         norm = torch.maximum(scores.sum(dim=-1, keepdim=True).abs(), torch.exp(-m))
-        return torch.einsum("bhqs,bhsk->bhqk", scores / norm, v32)
+        return _seq_shard(torch.einsum("bhqs,bhsk->bhqk", scores / norm, v32), ctx, 2)
 
     chunk = min(ctx.q_chunk, t)
     if t % chunk != 0:
@@ -91,6 +96,8 @@ def _mlstm_parallel(cfg: ModelConfig, params, x: Tensor, ctx: ApplyCtx):
     hh = torch.cat([chunk_out(q[:, :, s:s + chunk], fcum[..., s:s + chunk], pos[s:s + chunk])
                     for s in range(0, t, chunk)], dim=2)
     hh = (o.float() * hh).to(x.dtype)  # (B, H, T, hd)
+    if ctx.mesh_info is not None:
+        hh = pin_heads(hh, ctx.mesh_info, 1, cfg.num_heads)
     return torch.einsum("bhtk,hkd->btd", hh, params["wo"]), (k32, v32, log_i, fcum)
 
 
@@ -115,10 +122,11 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> Dict[str, Tensor]:
     }
 
 
-def _mlstm_step(cfg: ModelConfig, params, x: Tensor, cache: Dict[str, Tensor]):
+def _mlstm_step(cfg: ModelConfig, params, x: Tensor, cache: Dict[str, Tensor],
+                mi: Optional[MeshInfo] = None):
     """One stabilised recurrent step of x (B, 1, D) from the cache's state.
     Returns (y, the new state)."""
-    q, k, v, log_i, log_f, o = _mlstm_qkv(cfg, params, x)  # T == 1
+    q, k, v, log_i, log_f, o = _mlstm_qkv(cfg, params, x, mi)  # T == 1
     q1, k1, v1 = (a[:, :, 0].float() for a in (q, k, v))  # (B, H, hd)
     li, lf = log_i[..., 0], log_f[..., 0]  # (B, H)
     m_prev = cache["m"]
@@ -148,14 +156,14 @@ def mlstm_block(
     cache; decode advances the cache's state one step.  Both write in place."""
     if ctx.mode == "decode":
         assert cache is not None
-        y, state = _mlstm_step(cfg, params, x, cache)
+        y, state = _mlstm_step(cfg, params, x, cache, ctx.mesh_info)
     else:
         y, (k32, v32, log_i, fcum) = _mlstm_parallel(cfg, params, x, ctx)
         if ctx.mode != "prefill" or cache is None:
             return y, cache
         state = mlstm_final_state(k32, v32, log_i, fcum)
     for key, value in state.items():
-        cache[key].copy_(value)
+        write_state(cache[key], value)
     return y, cache
 
 
@@ -234,7 +242,7 @@ def slstm_block(
     y = torch.einsum("bthk,hkd->btd", hh, params["wo"])
     if cache is not None and ctx.mode != "train":
         for key, value in zip(_SLSTM_STATE, state):
-            cache[key].copy_(value)
+            write_state(cache[key], value)
     return y, cache
 
 
@@ -297,6 +305,22 @@ def _causal_conv(params, u: Tensor, state: Optional[Tensor]) -> Tuple[Tensor, Te
     return out, ext[:, -(_CONV_W - 1):].float()
 
 
+def _scan(a: Tensor, b: Tensor, h0: Optional[Tensor], ctx: ApplyCtx) -> Tensor:
+    """K3 over (B, T, R).  On a mesh it runs under ``local_map`` with the
+    batch over the data axes and the channels over the model axis, each
+    where it divides, forward and backward (``LruScan``)."""
+    mi = ctx.mesh_info
+    if mi is None:
+        return ops.lru_scan(a, b, h0)
+    from torch.distributed.tensor.experimental import local_map
+
+    batch, rnn = mi.split(mi.batch_axes, a.shape[0]), mi.split(mi.model_axis, a.shape[2])
+    seq = mi.placements(batch, None, rnn)
+    state = None if h0 is None else mi.placements(batch, rnn)
+    return local_map(ops.lru_scan, out_placements=(seq,), in_placements=(seq, seq, state),
+                     device_mesh=mi.mesh, redistribute_inputs=True)(a, b, h0)
+
+
 def rglru_block(
     cfg: ModelConfig,
     params: Dict[str, Tensor],
@@ -318,11 +342,11 @@ def rglru_block(
         h_last = a[:, 0] * cache["h"] + bb[:, 0]
         y_rnn = h_last[:, None, :]
     else:
-        y_rnn = ops.lru_scan(a, bb, None if cache is None else cache["h"])
+        y_rnn = _scan(a, bb, None if cache is None else cache["h"], ctx)
         h_last = y_rnn[:, -1]
     if cache is not None and ctx.mode in ("prefill", "decode"):
-        cache["h"].copy_(h_last)
-        cache["conv"].copy_(new_conv)
+        write_state(cache["h"], h_last)
+        write_state(cache["conv"], new_conv)
 
     y = (gate.float() * y_rnn).to(x.dtype) @ params["w_out"]
     return y, cache

@@ -26,13 +26,17 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ModelConfig
+from ..device import local
 from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (
     ApplyCtx,
     attention,
     attention_spec,
+    checkpoint_name,
+    constrain_batch,
     init_attention_cache,
+    mesh_scope,
     mlp,
     mlp_spec,
     rmsnorm,
@@ -55,31 +59,20 @@ MIXERS = {
 
 REMATS = ("none", "full", "dots", "outs")
 # "outs" keeps the tensors of these names, the reference's
-# save_only_these_names; moe_recv and moe_back are set on the expert-parallel
-# path only, which the port does not have yet (ROADMAP item 10b)
+# save_only_these_names; moe_recv and moe_back are set on the MoE's
+# expert-parallel path (a mesh) only
 SAVED_NAMES = ("attn_out", "mlp_out", "moe_recv", "moe_back")
 
 
-@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
-def _checkpoint_name(x: Tensor, name: str) -> Tensor:
-    """A named identity that the "outs" policy can see: one copy of x."""
-    return x.clone()
-
-
-_checkpoint_name.register_autograd(lambda ctx, grad: (grad, None),
-                                   setup_context=lambda ctx, inputs, output: None)
-
-
-def checkpoint_name(x: Tensor, name: str, ctx: ApplyCtx) -> Tensor:
-    """Name ``x`` for remat "outs"; under any other setting ``x`` itself, with
-    no operation dispatched.  ``_run_stack`` hands the blocks a ctx whose
-    remat is "outs" only inside a checkpointed cycle."""
-    return _checkpoint_name(x, name) if ctx.remat == "outs" else x
+def _storage(t: Tensor) -> int:
+    """The data pointer of the storage under ``t``: a DTensor's local shard's
+    (a DTensor has no storage of its own), read without a dispatch."""
+    return local(t).untyped_storage().data_ptr()
 
 
 def remat_policy(remat: str, weights) -> Any:
     """The selective-checkpoint policy of "dots" or "outs" over one cycle
-    whose parameters live in the storages ``weights`` (their data pointers).
+    whose parameters live in the storages ``weights`` (``_storage``).
 
     "dots" keeps a product whose operands share no batch dimension, the
     reference's dots_with_no_batch_dims_saveable: every ``aten.mm`` (x @ W,
@@ -99,7 +92,7 @@ def remat_policy(remat: str, weights) -> Any:
         else:
             save = op is torch.ops.aten.mm.default or (
                 op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
-                and any(t.untyped_storage().data_ptr() in weights for t in args[:2]))
+                and any(_storage(t) in weights for t in args[:2]))
         return CheckpointPolicy.MUST_SAVE if save else CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
@@ -188,11 +181,11 @@ def block_apply(
     if "ffn" in params:
         h = rmsnorm(params["ln2"], x, cfg.norm_eps)
         if kind == "moe":
-            y, probs = moe_lib.moe_ffn(cfg, params["ffn"], h)
+            y, probs = moe_lib.moe_ffn(cfg, params["ffn"], h, ctx)
             if ctx.mode == "train":
                 aux = moe_lib.load_balance_loss(cfg, probs)
         else:
-            y = mlp(cfg, params["ffn"], h)
+            y = mlp(cfg, params["ffn"], h, ctx)
         x = x + checkpoint_name(y, "mlp_out", ctx)
     return x, aux
 
@@ -235,18 +228,23 @@ def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
-def _embed(cfg: ModelConfig, params, tokens: Tensor, vision: Optional[Tensor] = None) -> Tensor:
+def _embed(cfg: ModelConfig, params, tokens: Tensor, vision: Optional[Tensor] = None,
+           ctx: Optional[ApplyCtx] = None) -> Tensor:
     """Token embeddings, after the projected patch embeddings ``vision``
-    (B, P, D) when given."""
+    (B, P, D) when given; on a mesh the batch is pinned to the data axes."""
     # the scale is cast to the embedding's dtype first: 50.5, not 50.596, in bf16
     emb = params["embed"]
+    if ctx is not None:
+        tokens = constrain_batch(tokens, ctx)
     x = emb[tokens] * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
-    if vision is None:
-        return x
-    return torch.cat([vision.to(x.dtype) @ params["vision_proj"], x], dim=1)
+    if vision is not None:
+        x = torch.cat([vision.to(x.dtype) @ params["vision_proj"], x], dim=1)
+    return x if ctx is None else constrain_batch(x, ctx)
 
 
-def _head(cfg: ModelConfig, params, x: Tensor) -> Tensor:
+def _head(cfg: ModelConfig, params, x: Tensor, ctx: Optional[ApplyCtx] = None) -> Tensor:
+    """Logits; on a mesh the batch over the data axes and the vocab over the
+    model axis where it divides."""
     if cfg.tie_embeddings:
         logits = torch.einsum("btd,vd->btv", x, params["embed"])
     else:
@@ -254,6 +252,10 @@ def _head(cfg: ModelConfig, params, x: Tensor) -> Tensor:
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
+    mi = None if ctx is None else ctx.mesh_info
+    if mi is not None:
+        vocab = mi.split(mi.model_axis, cfg.vocab_size)
+        logits = constrain_batch(logits, ctx, tail=[None] * (logits.ndim - 2) + [vocab])
     return logits
 
 
@@ -262,13 +264,34 @@ def _at(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def apply_cycle(cfg: ModelConfig, cycle_params, x: Tensor, *, ctx: ApplyCtx, positions: Tensor,
+                length: Optional[Tensor] = None, caches=None, enc_out: Optional[Tensor] = None,
+                aux: Optional[Tensor] = None) -> Tuple[Tensor, Optional[Tensor]]:
+    """One pattern cycle: ``cycle_params`` and ``caches`` (or None) hold one
+    entry a block of ``cfg.pattern``.  Its first step pins the residual
+    stream: on a mesh the batch over the data axes, and with
+    ``seq_parallel`` the sequence over the model axis where it divides.
+    Returns (x, aux), the blocks' aux losses added to ``aux`` (None while no
+    block has one)."""
+    mi = ctx.mesh_info
+    seq = mi.split(mi.model_axis, x.shape[1]) if ctx.seq_parallel and mi is not None else None
+    x = constrain_batch(x, ctx, tail=[seq, None] if seq else None)
+    for j, kind in enumerate(cfg.pattern):
+        x, a = block_apply(cfg, kind, cycle_params[j], x, ctx=ctx, positions=positions,
+                           length=length, cache=None if caches is None else caches[j],
+                           enc_out=enc_out)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions: Tensor,
                length: Optional[Tensor], cache: Optional[Dict[str, Any]],
                enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """The layer loop: every cycle of the pattern, then the remainder.
-    Returns (x, the sum of the blocks' aux losses).  In train mode with a
-    gradient, ``ctx.remat`` other than "none" runs each cycle under
-    activation checkpointing, as the reference wraps its cycle in
+    """The layer loop: every cycle of the pattern (``apply_cycle``), then the
+    remainder.  Returns (x, the sum of the blocks' aux losses).  In train
+    mode with a gradient, ``ctx.remat`` other than "none" runs each cycle
+    under activation checkpointing, as the reference wraps its cycle in
     ``jax.checkpoint``: "full" recomputes all of it in the backward pass,
     "dots" and "outs" keep what ``remat_policy`` saves.  The remainder is
     not wrapped, and runs as under "none"."""
@@ -280,29 +303,31 @@ def _run_stack(cfg: ModelConfig, params, x: Tensor, *, ctx: ApplyCtx, positions:
     remat = ctx.remat if train and torch.is_grad_enabled() else "none"
     plain = ctx if ctx.remat == "none" else dataclasses.replace(ctx, remat="none")
 
-    def run(layers, x, aux, ctx=plain):
-        for kind, p, c in layers:
-            x, a = block_apply(cfg, kind, p, x, ctx=ctx, positions=positions, length=length,
-                               cache=c, enc_out=enc_out)
-            if a is not None:
-                aux = aux + a
-        return x, aux
+    def cycle(cycle_params, caches, x, aux, ctx=plain):
+        return apply_cycle(cfg, cycle_params, x, ctx=ctx, positions=positions, length=length,
+                           caches=caches, enc_out=enc_out, aux=aux)
 
     saving = {}
     if remat in ("dots", "outs"):
-        weights = {t.untyped_storage().data_ptr() for t in leaves(params["cycles"])}
+        weights = {_storage(t) for t in leaves(params["cycles"])}
         saving["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
                                                  remat_policy(remat, weights))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_cycles):
-        cycle = [(kind, _at(params["cycles"][j], i), _at(cache["cycles"][j], i) if use else None)
-                 for j, kind in enumerate(cfg.pattern)]
+        cycle_params = [_at(params["cycles"][j], i) for j in range(len(cfg.pattern))]
+        caches = [_at(cache["cycles"][j], i) for j in range(len(cfg.pattern))] if use else None
         if remat == "none":
-            x, aux = run(cycle, x, aux)
+            x, aux = cycle(cycle_params, caches, x, aux)
         else:
-            x, aux = checkpoint(run, cycle, x, aux, ctx, use_reentrant=False, **saving)
-    return run([(kind, params["rest"][j], cache["rest"][j] if use else None)
-                for j, kind in enumerate(rest)], x, aux)
+            x, aux = checkpoint(cycle, cycle_params, caches, x, aux, ctx, use_reentrant=False,
+                                **saving)
+    for j, kind in enumerate(rest):
+        x, a = block_apply(cfg, kind, params["rest"][j], x, ctx=plain, positions=positions,
+                           length=length, cache=cache["rest"][j] if use else None,
+                           enc_out=enc_out)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict[str, Any]:
@@ -326,13 +351,15 @@ def forward_train(cfg: ModelConfig, params, tokens: Tensor, *, ctx: ApplyCtx,
     """Full-sequence forward, differentiable.  Returns (logits (B,T,V), aux),
     aux the sum of the MoE blocks' load-balance losses (0 without any); with
     ``vision`` T counts the patches before the tokens.  Parameters that do
-    not require a gradient build no graph."""
-    x = _embed(cfg, params, tokens, vision)
-    positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=None,
-                        enc_out=enc_out)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _head(cfg, params, x), aux
+    not require a gradient build no graph.  On a mesh (``ctx.mesh_info``)
+    the parameters are DTensors and so are the logits."""
+    with mesh_scope(ctx):
+        x = _embed(cfg, params, tokens, vision, ctx)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None,
+                            cache=None, enc_out=enc_out)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return _head(cfg, params, x, ctx), aux
 
 
 @torch.no_grad()
@@ -340,15 +367,18 @@ def prefill(cfg: ModelConfig, params, tokens: Tensor, cache: Dict[str, Any], *,
             ctx: ApplyCtx, vision: Optional[Tensor] = None,
             enc_out: Optional[Tensor] = None) -> Tuple[Tensor, Dict[str, Any]]:
     """Fill the cache in place; returns (last-position logits (B, V), cache).
-    ``cache["length"]`` counts the vision patches and the tokens."""
-    x = _embed(cfg, params, tokens, vision)
-    t = x.shape[1]
-    positions = torch.arange(t, device=x.device)
-    x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None, cache=cache,
-                      enc_out=enc_out)
-    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    cache["length"].fill_(t)
-    return _head(cfg, params, x)[:, 0], cache
+    ``cache["length"]`` counts the vision patches and the tokens.  On a mesh
+    the cache's leaves are DTensors (``distributed.sharding.cache_shardings``),
+    each shard written in place."""
+    with mesh_scope(ctx):
+        x = _embed(cfg, params, tokens, vision, ctx)
+        t = x.shape[1]
+        positions = torch.arange(t, device=x.device)
+        x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=positions, length=None,
+                          cache=cache, enc_out=enc_out)
+        x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        cache["length"].fill_(t)
+        return _head(cfg, params, x, ctx)[:, 0], cache
 
 
 @torch.no_grad()
@@ -356,11 +386,46 @@ def decode_step(cfg: ModelConfig, params, token: Tensor, cache: Dict[str, Any], 
                 ctx: ApplyCtx) -> Tuple[Tensor, Dict[str, Any]]:
     """One decode step of token (B, 1), the cache advanced in place.  Returns
     (logits (B, V), cache)."""
-    length = cache["length"]
-    x = _embed(cfg, params, token)
-    x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=length.reshape(1), length=length,
-                      cache=cache)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _head(cfg, params, x)[:, 0]
-    length.add_(1)
-    return logits, cache
+    with mesh_scope(ctx):
+        length = cache["length"]
+        x = _embed(cfg, params, token, None, ctx)
+        x, _ = _run_stack(cfg, params, x, ctx=ctx, positions=length.reshape(1), length=length,
+                          cache=cache)
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        logits = _head(cfg, params, x, ctx)[:, 0]
+        length.add_(1)
+        return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# logical axes of the decode cache (the sharding rules)
+# ---------------------------------------------------------------------------
+
+
+def _block_cache_axes(cfg: ModelConfig, kind: str):
+    """Logical axes tree parallel to ``init_block_cache``."""
+    _check_kind(kind)
+    kv = {"k": ("batch", "seq", "kv_heads", "head_dim"),
+          "v": ("batch", "seq", "kv_heads", "head_dim")}
+    if kind == "xdec":
+        return {"self": dict(kv), "cross": dict(kv)}
+    if kind == "mlstm":
+        return {"C": ("batch", "heads", "head_dim", None), "n": ("batch", "heads", "head_dim"),
+                "m": ("batch", "heads")}
+    if kind == "slstm":
+        ax = ("batch", "heads", "head_dim")
+        return {"c": ax, "n": ax, "h": ax, "m": ax}
+    if kind == "rglru":
+        return {"h": ("batch", "rnn"), "conv": ("batch", None, "rnn")}
+    return kv
+
+
+def cache_axes_tree(cfg: ModelConfig):
+    """Axes tree with the structure of ``init_cache``'s output."""
+    n_cycles, rest = _cycles_and_rest(cfg)
+    stacked = lambda kind: tree_map(lambda ax: ("layers", *ax), _block_cache_axes(cfg, kind))
+    return {
+        "length": (),
+        "cycles": [stacked(kind) for kind in cfg.pattern],
+        "rest": [_block_cache_axes(cfg, kind) for kind in rest],
+    }

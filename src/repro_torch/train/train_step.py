@@ -16,6 +16,11 @@ The reference's ``lax.scan`` over microbatches is a Python loop here, and
 which are made to require a gradient inside the step only: the parameters
 the caller holds are plain tensors between steps.  Gradients come in the
 parameters' dtype and accumulate in ``grad_dtype``.
+
+On a mesh (``ctx.mesh_info``) the parameters are DTensors: the microbatches
+are laid out (M, B/M, ...) with dim 1 over the data axes, each gradient is
+reduced to its parameter's placements, and the loss and metrics come back
+whole on every rank.
 """
 from __future__ import annotations
 
@@ -25,8 +30,9 @@ import torch
 from torch import Tensor
 
 from ..configs.base import ModelConfig, RunConfig
+from ..device import is_dtensor
 from ..models import model_zoo
-from ..models.layers import ApplyCtx
+from ..models.layers import ApplyCtx, constrain, constrain_batch, mesh_scope
 from ..models.params import leaves, unflatten
 from ..optim import adamw
 
@@ -54,6 +60,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor],
     labels = batch["labels"]
     if cfg.vision_patches and logits.shape[1] != labels.shape[1]:
         logits = logits[:, -labels.shape[1]:]  # loss on text positions only
+    if ctx.mesh_info is not None:  # the loss reads whole rows of the vocab
+        logits, labels = constrain_batch(logits, ctx), constrain_batch(labels, ctx)
     xent, z = cross_entropy(logits, labels, cfg.vocab_size)
     loss = xent + Z_LOSS_WEIGHT * z + cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux, "z": z}
@@ -61,15 +69,21 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, Tensor],
 
 def microbatch_value_and_grad(cfg: ModelConfig, ctx: ApplyCtx) -> Callable:
     """(params, microbatch) -> ((loss, metrics), grads), every output
-    detached; a leaf the loss does not reach gets a zero gradient."""
+    detached; a leaf the loss does not reach gets a zero gradient.  On a
+    mesh each gradient has its parameter's placements (a partial sum is
+    reduced) and the loss and metrics are whole tensors."""
 
     def f(params, mb):
         flat = [p.detach().requires_grad_(True) for p in leaves(params)]
-        with torch.enable_grad():
+        with torch.enable_grad(), mesh_scope(ctx):
             loss, metrics = loss_fn(cfg, unflatten(params, flat), mb, ctx)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if is_dtensor(loss):
+            grads = [g.redistribute(p.device_mesh, p.placements) for p, g in zip(flat, grads)]
+            loss = loss.full_tensor()
+            metrics = {k: v.full_tensor() if is_dtensor(v) else v for k, v in metrics.items()}
         return (loss.detach(), metrics), unflatten(params, grads)
 
     return f
@@ -102,9 +116,9 @@ def accumulate_grads(
 
     weights: optional (M,) per-microbatch weights (the partitioner's
     heterogeneous split; weight 0 skips a microbatch's contribution).
-    ``batch`` leaves are microbatched already: (M, B/M, ...).  ``metrics``
-    hold the unweighted means of xent, aux and z over the microbatches and
-    the weighted mean ``loss``.
+    ``batch`` leaves are microbatched already: (M, B/M, ...), dim 1 placed
+    over the data axes on a mesh.  ``metrics`` hold the unweighted means of
+    xent, aux and z over the microbatches and the weighted mean ``loss``.
     """
     vg = microbatch_value_and_grad(cfg, ctx)
     device = leaves(params)[0].device
@@ -112,7 +126,12 @@ def accumulate_grads(
         weights = torch.ones((num_microbatches,), dtype=torch.float32, device=device)
     weights = weights.to(device=device, dtype=torch.float32)
     wsum = torch.clamp(torch.sum(weights), min=1e-9)
-    acc = [torch.zeros(p.shape, dtype=grad_dtype, device=p.device) for p in leaves(params)]
+    mi = ctx.mesh_info
+    if mi is not None:
+        batch = {k: constrain(v, mi, (None, mi.batch_axes, *[None] * (v.ndim - 2)))
+                 for k, v in batch.items()}
+    acc = [torch.zeros_like(p, dtype=grad_dtype) if is_dtensor(p)
+           else torch.zeros(p.shape, dtype=grad_dtype, device=p.device) for p in leaves(params)]
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
     per_mb = []
     for i in range(num_microbatches):

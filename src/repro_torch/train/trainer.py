@@ -13,7 +13,10 @@ The port's counterpart of ``repro.train.trainer``.  Flow per step:
      scheduler's beliefs and generator, the telemetry ring)
 
 ``Trainer`` is an entry point: it runs on the card unless ``device`` names
-another device.  Its checkpoint tree keeps the reference's key paths
+another device.  Given a ``models.MeshInfo`` it trains on that mesh, as the
+reference's trainer does: the parameters and the AdamW state stay unplaced
+(replicated DTensors), and the model stack places the batch and its
+activations (``ApplyCtx.mesh_info``).  Its checkpoint tree keeps the reference's key paths
 (``['params']``, ``['opt_state'].m``, ``['sched']``, ``['serve']``), so a
 reference checkpoint restores into it by name, less the random-key leaves.
 """
@@ -33,8 +36,9 @@ from ..distributed.compression import make_compressor
 from ..distributed.fault_tolerance import FaultToleranceMonitor
 from ..distributed.simulated_cluster import SimulatedCluster
 from ..hier.hyperprior import hyper_init
+from ..distributed.sharding import replicated_specs, shard_tree
 from ..models import model_zoo
-from ..models.layers import ApplyCtx
+from ..models.layers import ApplyCtx, MeshInfo
 from ..optim import adamw
 from ..sched import Objective, Scheduler, SchedulerConfig, Telemetry
 from ..serve import ring as serve_ring
@@ -59,19 +63,21 @@ class Trainer:
         *,
         cluster: Optional[SimulatedCluster] = None,
         num_microbatches: Optional[int] = None,
-        mesh_info: Any = None,
+        mesh_info: Optional[MeshInfo] = None,
         scheduler_config: Optional[SchedulerConfig] = None,
         device=None,
     ):
         """``scheduler_config`` overrides the default partitioner config.  A
         config whose objective is the default (mean) still honors the run's
         ``partitioner_risk_aversion``; any non-default objective wins as-is.
-        ``mesh_info`` must be None: the sharded model stack is ROADMAP item
-        10.  The moments are float32 whatever ``run.optimizer_dtype`` says, as
-        the reference's trainer keeps them; that setting is read by the dry
-        run alone (ROADMAP item 13)."""
-        if mesh_info is not None:
-            raise NotImplementedError("mesh_info: the sharded model stack is ROADMAP item 10b")
+        ``mesh_info`` (a ``MeshInfo`` over a ``DeviceMesh`` of the device's
+        type, every rank running the same trainer) trains on the mesh.  The
+        moments are float32 whatever ``run.optimizer_dtype`` says, as the
+        reference's trainer keeps them; that setting is read by the dry run
+        alone (ROADMAP item 13)."""
+        if mesh_info is not None and not isinstance(mesh_info, MeshInfo):
+            raise TypeError(f"mesh_info must be a repro_torch.models.MeshInfo or None, "
+                            f"not {type(mesh_info).__name__}")
         self.device = resolve_device(device)
         self.run = run
         self.cfg = run.model
@@ -81,9 +87,14 @@ class Trainer:
 
         self.params = model_zoo.init_model_params(self.cfg, seed=run.seed, device=self.device)
         self.opt_state = adamw.init(self.params)
+        if mesh_info is not None:  # every rank made the same values: replicate them
+            mesh = mesh_info.mesh
+            replicate = lambda tree: shard_tree(tree, replicated_specs(tree), mesh)
+            self.params = replicate(self.params)
+            self.opt_state = adamw.AdamWState(*(replicate(x) for x in self.opt_state))
         self.step = 0
 
-        self.ctx = ApplyCtx(mode="train", remat=run.remat)
+        self.ctx = ApplyCtx(mode="train", mesh_info=mesh_info, remat=run.remat)
         compression = None
         self._ef = None
         if run.grad_compression != "none":

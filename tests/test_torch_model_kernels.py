@@ -348,6 +348,27 @@ def test_decode_attention_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,d", sorted(INSTANTIATED))
+def test_decode_attention_log_sum_exp_matches_plain_on_card(g, d):
+    """K2's optional (B, H) log-sum-exp output at each compiled (G, D), with
+    lengths 0 (-inf), one chunk's tail and the whole cache; the output is
+    the one without the flag."""
+    _needs_card()
+    b, kvh, s = 3, 2, 200
+    dev = lambda x: torch.as_tensor(x, device="cuda")
+    q, k, v, _ = (dev(x) for x in _decode_inputs(b, g * kvh, kvh, d, s, seed=g + d))
+    length = dev(np.asarray([0, 70, s], np.int32))
+    out, lse = ops.decode_attention(q, k, v, length, return_lse=True)
+    torch.cuda.synchronize()
+    want_out, want_lse = decode_attention_plain(q, k, v, length, return_lse=True)
+    assert lse.shape == (b, g * kvh) and lse.dtype == torch.float32
+    assert bool(torch.isneginf(lse[0]).all())
+    _close(lse[1:].cpu(), want_lse[1:].cpu(), 2e-5)
+    assert torch.equal(out, ops.decode_attention(q, k, v, length))
+    _close(out.cpu(), want_out.cpu(), 2e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype,kv_dtype", [("float32", "float32"), ("bfloat16", "bfloat16"),
                                               ("bfloat16", "float32"), ("float32", "bfloat16")])
 @pytest.mark.parametrize("g,d", sorted(INSTANTIATED))

@@ -95,6 +95,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.checkpoint, repro_torch.checkpoint.checkpoint\n"
         "import repro_torch.sched.compat, repro_torch.core.partitioner\n"
         "import repro_torch.distributed.fault_tolerance, repro_torch.distributed.compression\n"
+        "import repro_torch.distributed.sharding\n"
         "import repro_torch.optim, repro_torch.optim.adamw, repro_torch.data.pipeline\n"
         "import repro_torch.train.train_step, repro_torch.train.trainer\n"
         "import repro_torch.launch.train, repro_torch.configs.shapes\n"
@@ -114,10 +115,8 @@ def test_port_imports_no_jax_and_no_reference():
 
 
 # Names of the reference's ``__all__`` that the port does not export yet,
-# each with the ROADMAP item (queue 1) that ports it.
-STILL_TO_PORT = {
-    "models": {"MeshInfo": "10b"},
-}
+# each with the ROADMAP item (queue 1) that ports it: none is left.
+STILL_TO_PORT = {}
 # Pallas kernels and their oracle module, and the port's CUDA counterparts.
 KERNEL_COUNTERPARTS = {
     "posterior_grid_fleet_pallas": "posterior_grid_cuda",

@@ -270,6 +270,30 @@ def test_entry_points_without_a_device_raise_on_a_cpu_machine(tmp_path):
         launch_train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
 
 
-def test_mesh_info_is_refused_until_sharding_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
+def test_a_trainer_given_a_mesh_info_trains_and_anything_else_is_refused(tmp_path):
+    """A ``MeshInfo`` over a one-rank gloo world's (1, 1) mesh trains, its
+    losses those of the unsharded trainer (the parameters replicated
+    DTensors); any other ``mesh_info`` raises a TypeError.  The 4-rank
+    meshes are tests/test_torch_model_sharding.py's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import MeshInfo
+
+    with pytest.raises(TypeError, match="MeshInfo"):
         Trainer(_run_cfg(tmp_path), mesh_info=object(), device="cpu")
+    run = _run_cfg(tmp_path / "plain", partitioner_enabled=False)
+    plain = Trainer(run, num_microbatches=2, device="cpu").train(2).losses
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        run = _run_cfg(tmp_path / "mesh", partitioner_enabled=False)
+        tr = Trainer(run, num_microbatches=2, mesh_info=MeshInfo(mesh, ("data",), "model"),
+                     device="cpu")
+        assert isinstance(tr.params["embed"], DTensor)
+        losses = tr.train(2).losses
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(losses, plain, rtol=1e-5)
