@@ -281,7 +281,8 @@ result lines:
      refuse a DTensor), the logits against the unsharded twin's (bitwise,
      or TF_TOL, said which), prefill and decode ms beside the twin's (each
      run once to warm up, once timed); ``Trainer(mesh_info=)`` on it cut to
-     6 layers, 8 x 512 tokens in 4 microbatches, 2 steps and one drain
+     6 layers, 8 x 512 tokens in 4 microbatches, ``int8_ef`` compression, 2
+     steps and one drain
      (K1 20, K3 32 and its backward 16 launches), the losses at rtol 1e-5
      of the unsharded trainer's; one full-width granite-moe-3b-a800m MoE
      layer on the mesh (its tensor-parallel path) against the unsharded
@@ -290,6 +291,18 @@ result lines:
      halves merged by the log-sum-exps against K2 on the whole (an empty
      half adding nothing), and K2's time at phase 7's shape with and without
      the output.  The world is destroyed at the end of the phase.
+ 24. the dry run (``repro_torch.launch.dryrun``): ``python -m
+     repro_torch.launch.dryrun --arch tinyllama-1.1b --shape decode_32k
+     --mesh single`` in a subprocess with ``--device cuda`` and with
+     ``--device cpu`` (a fake world of 512 ranks, the 16 x 16 mesh on its
+     first 256): each route's per-device FLOPs, bytes, collective bytes,
+     peak and kernel calls, the two routes equal; then ``dryrun.cut_cell``
+     of that decode step cut to 8 sequences (2.2 GB of bf16 weights, 5.9 GB
+     of cache 32 768 deep) on a (1, 1) mesh, and the same step run on the
+     card on a (1, 1) mesh over a one-rank NCCL world: its peak
+     (``max_memory_allocated`` above what was allocated before its
+     arguments) within 10 % of the estimate's ``peak_bytes_est``, its K2
+     launches (22, under ``local_map``) the estimate's calls.
 
 Then three result lines: a JSON object with every kernel's route, source,
 launches on the main paths (in all, and by path), error against its plain
@@ -3743,7 +3756,8 @@ def phase_sharded(device="cuda", k=K_FLEET, n=N_OBS, big_k=SVC_K, dag_k=DAG_K, d
 MESH_SERVE = (4, 1024, 8)  # batch, prompt, decode steps; recurrentgemma-2b, all 26 layers
 MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_MB = 6, 2, 4
 MESH_TRAIN_SHAPE = dict(seq_len=512, global_batch=8)
-MESH_TRAIN_RUN = dict(TRAIN_RUN, grad_compression="none", partitioner_refit_every=2, warmup_steps=1)
+# int8_ef (TRAIN_RUN's): each replicated gradient compressed whole (fault 3g)
+MESH_TRAIN_RUN = dict(TRAIN_RUN, partitioner_refit_every=2, warmup_steps=1)
 MESH_MOE_TOKENS = (4, 512)  # granite-moe-3b-a800m's MoE layer at full width
 MESH_STORE = ROOT / "build" / "model_sharding_store"  # git-ignored; the world's FileStore
 MESH_DIR = ROOT / "build" / "model_sharding_ckpt"  # git-ignored; never written (no checkpoint)
@@ -3993,6 +4007,176 @@ def phase_model_sharded(device="cuda", serve_cfg=None, serve=MESH_SERVE, train_c
     return dict(model_sharded_serve=serve_launches, model_sharded_train=train_launches)
 
 
+# Phase 24: the dry run (``repro_torch.launch.dryrun``): the reference test's
+# cell on the 16 x 16 mesh of a fake world of 512 ranks, on both device
+# routes; then its estimate of a cut step against the card's own peak.
+DRYRUN_CELL = ("tinyllama-1.1b", "decode_32k", "single")
+DRYRUN_CHECK_BATCH = 8  # decode_32k cut from 128 sequences to 8 for the (1, 1) check
+DRYRUN_PEAK_TOL = 0.10  # the measured peak against the estimate, relative to the estimate
+DRYRUN_DIR = ROOT / "build" / "dryrun"  # git-ignored; the cells' JSON files
+DRYRUN_STORE = ROOT / "build" / "dryrun_store"  # git-ignored; the check's one-rank world
+DRYRUN_KEYS = ("memory", "full_cost", "full_coll", "kernel_calls")  # what both routes must agree on
+
+
+def start_src(argv):
+    """``argv`` started in a subprocess with ``src`` on the path."""
+    import os
+
+    return subprocess.Popen(argv, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def wait_src(proc, what, timeout=900):
+    """The standard output of a subprocess from ``start_src``, which must exit 0."""
+    out, err = proc.communicate(timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"[{what}] exit {proc.returncode}: {out[-2000:]}{err[-3000:]}")
+    return out
+
+
+def start_dryrun_cell(device):
+    """``python -m repro_torch.launch.dryrun`` on DRYRUN_CELL with ``--device``,
+    started."""
+    arch, shape, mesh = DRYRUN_CELL
+    return start_src([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                      "--shape", shape, "--mesh", mesh, "--device", device,
+                      "--out", str(DRYRUN_DIR / device), "--force"])
+
+
+def dryrun_cell(device, proc, t0):
+    """The cell's JSON of a ``start_dryrun_cell`` subprocess, printed."""
+    arch, shape, mesh = DRYRUN_CELL
+    wait_src(proc, f"dryrun-{device}")
+    cell = json.loads((DRYRUN_DIR / device / f"{arch}__{shape}__{mesh}.json").read_text())
+    full = cell["full"]
+    say(f"[dryrun] {cell['cell']} --device {device}: {cell['chips']} chips {cell['mesh']}; per "
+        f"device flops {full['full_cost']['flops']:.6e}, bytes {full['full_cost']['bytes']:.6e}, "
+        f"collective bytes {full['full_coll']}, peak {full['memory']['peak_bytes_est']:.6e} "
+        f"(arguments {full['memory']['argument_bytes']:.6e}), kernel calls "
+        f"{full['kernel_calls']}; the step {full['step_seconds']} s, done {time.time() - t0:.1f} s "
+        f"after the phase's start")
+    return cell
+
+
+ESTIMATE_CODE = """
+import json, sys, dataclasses
+from repro_torch.configs import get_arch, get_shape, reduced
+from repro_torch.launch import dryrun
+arch, shape, batch, small, device = json.loads(sys.argv[1])
+cfg = reduced(get_arch(arch)) if small else get_arch(arch)
+shape = dataclasses.replace(get_shape(shape), global_batch=batch)
+print(json.dumps(dryrun.cut_cell(cfg, shape, (1, 1), device=device)))
+"""
+
+
+def phase_dryrun(device="cuda", small=False):
+    """Phase 24: the dry run of DRYRUN_CELL on both routes (``--device cuda``
+    and ``cpu``: the same counts, exactly); then ``dryrun.cut_cell`` of its
+    decode step cut to DRYRUN_CHECK_BATCH sequences on a (1, 1) mesh, and
+    the same step run for real on a (1, 1) mesh over a one-rank world (NCCL
+    on the card), its peak (``max_memory_allocated`` above what was
+    allocated before its arguments) within DRYRUN_PEAK_TOL of the
+    estimate's, and its K2 launches one an attention layer, as the
+    estimate's calls.  ``small`` runs the check at the reduced config (a
+    rehearsal on the CPU, where no peak is measured).  Returns the real
+    step's launches."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch, get_shape, reduced
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import MeshInfo, model_zoo
+    from repro_torch.models.layers import ApplyCtx
+    from repro_torch.train import serve_step
+
+    arch, shape_name, _ = DRYRUN_CELL
+    cfg = reduced(get_arch(arch)) if small else get_arch(arch)
+    shape = dataclasses.replace(get_shape(shape_name), global_batch=DRYRUN_CHECK_BATCH)
+    t0 = time.time()  # the two routes and the estimate run at once, each a process
+    procs = {d: start_dryrun_cell(d) for d in (("cuda", "cpu") if device != "cpu" else ("cpu",))}
+    estimate = start_src([sys.executable, "-c", ESTIMATE_CODE, json.dumps(
+        [arch, shape_name, DRYRUN_CHECK_BATCH, small, device])])
+    routes = {d: dryrun_cell(d, proc, t0) for d, proc in procs.items()}
+    first = next(iter(routes.values()))
+    for d, cell in routes.items():
+        diff = [k for k in DRYRUN_KEYS if cell["full"][k] != first["full"][k]]
+        if diff:
+            raise AssertionError(f"[dryrun] --device {d} differs from the other route in {diff}")
+    full = first["full"]
+    if first["chips"] != 256 or first["mesh"] != {"data": 16, "model": 16} or \
+            not (full["full_cost"]["flops"] > 0 and full["memory"]["peak_bytes_est"] > 0):
+        raise AssertionError(f"[dryrun] cell {first}")
+    say(f"[dryrun] both routes agree exactly on {', '.join(DRYRUN_KEYS)}")
+
+    est = json.loads(wait_src(estimate, "dryrun-estimate").splitlines()[-1])
+    want_calls = {"decode_attention": attention_layers(cfg)}
+    if est["kernel_calls"] != want_calls:
+        raise AssertionError(f"[dryrun-check] estimated kernel calls {est['kernel_calls']}, not "
+                             f"{want_calls}")
+
+    DRYRUN_STORE.parent.mkdir(parents=True, exist_ok=True)
+    DRYRUN_STORE.unlink(missing_ok=True)
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if device != "cpu" else "gloo",
+                            store=dist.FileStore(str(DRYRUN_STORE), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(torch.device(device).type, (1, 1), mesh_dim_names=("data", "model"))
+        mi = MeshInfo(mesh, ("data",), "model")
+        on_card = device != "cpu"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+        params = model_zoo.init_model_params(cfg, seed=0, device=device)
+        specs = shd.tree_shardings(model_zoo.abstract_model_params(cfg), model_zoo.model_axes(cfg),
+                                   mesh, shd.default_rules(mesh, fsdp=False))
+        params = shd.shard_tree(params, specs, mesh)
+        cache = model_zoo.init_cache(cfg, shape.global_batch, shape.seq_len, device=device)
+        cache = shd.shard_tree(cache, shd.cache_shardings(
+            cache, model_zoo.transformer.cache_axes_tree(cfg), mesh), mesh)
+        cache["length"].fill_(shape.seq_len - 1)  # the step reads every row, as the cell's
+        gen = torch.Generator(device=device).manual_seed(24)
+        token = torch.randint(0, cfg.vocab_size, (shape.global_batch, 1), generator=gen,
+                              device=device, dtype=torch.int32)
+        step = serve_step.make_decode_step(cfg, ctx=ApplyCtx(mode="decode", mesh_info=mi))
+        if on_card:
+            torch.cuda.synchronize()
+            args_bytes = torch.cuda.memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out, _ = step(params, token, cache)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        out = whole(out)
+        if out.shape != (shape.global_batch, 1) or not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"[dryrun-check] tokens {tuple(out.shape)} out of range")
+        if on_card:
+            peak = torch.cuda.max_memory_allocated() - base
+            want = est["memory"]["peak_bytes_est"]
+            miss = (peak - want) / want
+            say(f"[dryrun-check] {cfg.name} decode_32k cut to {shape.global_batch} sequences on a "
+                f"(1, 1) mesh: estimated peak {want:.6e} B (arguments "
+                f"{est['memory']['argument_bytes']:.6e}, temporaries "
+                f"{est['memory']['temp_bytes']:.6e}), measured on the card {peak:.6e} B "
+                f"(arguments {args_bytes:.6e}), {100 * miss:+.2f} %; estimated kernel calls "
+                f"{est['kernel_calls']}, launches {launches}")
+            if abs(miss) > DRYRUN_PEAK_TOL:
+                raise AssertionError(f"[dryrun-check] measured peak {peak} is {100 * miss:+.2f} % "
+                                     f"off the estimate {want}")
+        else:
+            say(f"[dryrun-check] {cfg.name} decode_32k cut to {shape.global_batch} sequences on a "
+                f"(1, 1) mesh: estimated peak {est['memory']['peak_bytes_est']:.6e} B, kernel "
+                f"calls {est['kernel_calls']}; the step ran (no peak is measured off the card)")
+        del params, cache, out
+    finally:
+        dist.destroy_process_group()
+        DRYRUN_STORE.unlink(missing_ok=True)
+    return launches
+
+
 def main() -> int:
     card = phase_environment()
     phase_build()
@@ -4119,8 +4303,8 @@ def main() -> int:
         raise AssertionError(f"[train-hybrid] launches {hybrid_launches}, not {want}")
     errs["posterior_grid_fleet"] = max(errs["posterior_grid_fleet"], phase_train_k1_parity(hybrid_k1))
     # one microbatch: K3 once an RG-LRU layer without remat; under "full",
-    # "dots" and "outs" twice (the policy sees only K3's allocations, so the
-    # scan is recomputed), its backward once
+    # "dots" and "outs" twice (the policy recomputes K3's custom op), its
+    # backward once
     n = layer_kinds(hybrid_cfg).count("rglru")
     for remat, got in hybrid_remat.items():
         want = dict(posterior_grid_fleet=0, decode_attention=0, lru_scan=(1 if remat == "none" else 2) * n,
@@ -4170,6 +4354,10 @@ def main() -> int:
     lse_out_err, lse_err, lse_timing = k2_lse_checks()
     errs["decode_attention"] = max(errs["decode_attention"], lse_out_err, lse_err)
     timing["decode_attention"]["with_lse_ms"] = lse_timing["with_lse_ms"]
+    dryrun_launches = phase_dryrun()
+    want = dict(none, decode_attention=attention_layers(get_arch(DRYRUN_CELL[0])))
+    if dryrun_launches != want:  # K2 once an attention layer, under local_map
+        raise AssertionError(f"[dryrun-check] launches {dryrun_launches}, not {want}")
     total = lambda by_remat: {k: sum(c[k] for c in by_remat.values()) for k in none}
     by_path = dict(fleet=fleet_launches, serve=serve_launches, serve_smollm=smollm_launches,
                    serve_granite=granite_launches, serve_arctic=arctic_launches,
@@ -4183,7 +4371,8 @@ def main() -> int:
                    train_parity=parity_launches, train=train_launches, train_cli=cli_launches,
                    train_hybrid=hybrid_launches, train_remat=total(train_remat),
                    train_hybrid_remat=total(hybrid_remat), example_train_hetero=hetero_launches,
-                   example_elastic=elastic_launches, **sharded_launches, **model_launches)
+                   example_elastic=elastic_launches, **sharded_launches, **model_launches,
+                   dryrun_check=dryrun_launches)
     stray = {p: c["lru_scan_bwd"] for p, c in by_path.items() if c.get("lru_scan_bwd")
              and p not in ("train_parity", "train_hybrid", "train_hybrid_remat",
                            "model_sharded_train")}

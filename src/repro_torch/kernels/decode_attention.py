@@ -17,11 +17,18 @@ scores (float32 (B, H), -inf for an empty row set): a decode whose cache is
 split by rows across ranks merges the ranks' outputs by it
 (``models.layers._decode_on_mesh``).  A DTensor is refused: the caller runs
 the kernel on local tensors under ``local_map``.
+
+Each call is one operation of the dispatcher, the custom ops
+``repro_torch::decode_attention`` and ``repro_torch::decode_attention_lse``
+(``torch.library``): a CPU implementation (the plain version), a CUDA one
+(the kernel, or an error) and a shape rule for fake and meta tensors, so a
+dispatch mode sees K2 as one operation and never the plain version's
+scores (``launch.dryrun`` counts it by ``work``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -116,17 +123,60 @@ def decode_attention_cuda(q: Tensor, k: Tensor, v: Tensor, length: Tensor, *,
     return out if lse is None else (out, lse)
 
 
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=(), device_types="cpu")
+def _decode_attention_op(q: Tensor, k: Tensor, v: Tensor, length: Tensor) -> Tensor:
+    return decode_attention_plain(q, k, v, length)
+
+
+@_decode_attention_op.register_kernel("cuda")
+def _(q, k, v, length):
+    return decode_attention_cuda(q, k, v, length)
+
+
+@_decode_attention_op.register_fake
+def _(q, k, v, length):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_lse", mutates_args=(),
+                         device_types="cpu")
+def _decode_attention_lse_op(q: Tensor, k: Tensor, v: Tensor,
+                             length: Tensor) -> Tuple[Tensor, Tensor]:
+    return decode_attention_plain(q, k, v, length, return_lse=True)
+
+
+@_decode_attention_lse_op.register_kernel("cuda")
+def _(q, k, v, length):
+    return decode_attention_cuda(q, k, v, length, return_lse=True)
+
+
+@_decode_attention_lse_op.register_fake
+def _(q, k, v, length):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def work(q: Tensor, k: Tensor, v: Tensor, length: Tensor, return_lse: bool = False):
+    """(operations, bytes) of one K2 call, the bound's count: a multiply-add
+    (2 operations) for q.k and for p.v at every head and cache row; q, every
+    K and V row (a length is not read on the host) and the lengths read, the
+    output (and the log-sum-exps) written."""
+    b, h, d = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + k.numel() * k.element_size() \
+        + v.numel() * v.element_size() + length.numel() * length.element_size()
+    return 4.0 * b * h * k.shape[1] * d, float(nbytes + (4 * b * h if return_lse else 0))
+
+
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, length: Tensor, *,
                      return_lse: bool = False):
     """Flash-decode GQA attention (B, H, D) x (B, S, KVH, D) -> (B, H, D)
     (and the (B, H) log-sum-exps with ``return_lse``).
 
     Same signature as ``decode_attention_pallas``.  CUDA tensors run the
-    kernel; CPU tensors run ``decode_attention_plain``; a DTensor is refused.
+    kernel; CPU tensors run ``decode_attention_plain``; fake and meta
+    tensors take the shape rule; a DTensor is refused.  One custom op a call.
     """
     refuse_dtensor("decode_attention", q, k, v, length)
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, length, return_lse=return_lse)
-    if not q.is_cuda:
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
-    return decode_attention_cuda(q, k, v, length, return_lse=return_lse)
+    op = _decode_attention_lse_op if return_lse else _decode_attention_op
+    return op(q, k, v, length)

@@ -21,11 +21,18 @@ a tile of its own, ``BWD_CHUNK`` by ``BWD_WIDTH``.  Each tile is fixed in the
 kernel's source; ``scan_layout`` does the tiling's arithmetic (chunks,
 channel tiles, tiles, the workspace of carries) for either, and the kernel
 refuses a workspace or a tile that disagrees.
+
+The scan and its backward are each one operation of the dispatcher, the
+custom ops ``repro_torch::lru_scan`` and ``repro_torch::lru_scan_bwd``
+(``torch.library``): a CPU implementation (the plain version), a CUDA one
+(the kernel, or an error) and a shape rule for fake and meta tensors.
+``LruScan`` runs the two ops, so a dispatch mode sees each call as one
+operation (``launch.dryrun`` counts them by ``work`` and ``backward_work``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 from torch import Tensor
@@ -171,41 +178,86 @@ def lru_scan_bwd_cuda(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor, *, kernel=No
     return da, db
 
 
+@torch.library.custom_op("repro_torch::lru_scan", mutates_args=(), device_types="cpu")
+def _lru_scan_op(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
+    return lru_scan_plain(a, b, h0)
+
+
+@_lru_scan_op.register_kernel("cuda")
+def _(a, b, h0):
+    return lru_scan_cuda(a, b, h0)
+
+
+@_lru_scan_op.register_fake
+def _(a, b, h0):
+    return torch.empty_like(a)
+
+
+@torch.library.custom_op("repro_torch::lru_scan_bwd", mutates_args=(), device_types="cpu")
+def _lru_scan_bwd_op(a: Tensor, h: Tensor, h0: Tensor,
+                     dy: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    return lru_scan_backward_plain(a, h, h0, dy)
+
+
+@_lru_scan_bwd_op.register_kernel("cuda")
+def _(a, h, h0, dy):
+    da, db = lru_scan_bwd_cuda(a, h, h0, dy.to(a.dtype))
+    return da, db, (a[:, 0].float() * db[:, 0].float()).to(h0.dtype)
+
+
+@_lru_scan_bwd_op.register_fake
+def _(a, h, h0, dy):
+    return torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+
+
+def work(a: Tensor, b: Tensor, h0: Tensor):
+    """(operations, bytes) of one K3 call, the bound's count: a multiply-add
+    an element; a and b read, h written, h0 read."""
+    n = a.numel()
+    return 2.0 * n, float(n * (2 * a.element_size() + b.element_size())
+                          + h0.numel() * h0.element_size())
+
+
+def backward_work(a: Tensor, h: Tensor, h0: Tensor, dy: Tensor):
+    """(operations, bytes) of one call of K3's backward, the bound's count:
+    3 operations an element (g = a g + dy, da = g h); a, dy and h read, da
+    and db written, h0 read and dh0 written."""
+    n = a.numel()
+    return 3.0 * n, float(n * (3 * a.element_size() + h.element_size() + dy.element_size())
+                          + 2 * h0.numel() * h0.element_size())
+
+
 class LruScan(torch.autograd.Function):
-    """K3 with its backward.  The forward runs the kernel on a CUDA tensor
-    and ``lru_scan_plain`` on a CPU tensor, and saves a, its output h and h0
-    (not b); the backward runs ``lru_scan_bwd`` or
-    ``lru_scan_backward_plain`` alike.  Under
+    """K3 with its backward.  The forward runs ``repro_torch::lru_scan`` (the
+    kernel on a CUDA tensor, ``lru_scan_plain`` on a CPU tensor) and saves
+    a, its output h and h0 (not b); the backward runs
+    ``repro_torch::lru_scan_bwd`` (``lru_scan_bwd`` or
+    ``lru_scan_backward_plain``) alike.  Under
     ``torch.utils.checkpoint(use_reentrant=False)`` the forward runs again
     in the recompute, so a layer launches K3 twice and its backward once."""
 
     @staticmethod
     def forward(ctx, a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
-        h = lru_scan_cuda(a, b, h0) if a.is_cuda else lru_scan_plain(a, b, h0)
+        h = _lru_scan_op(a, b, h0)
         ctx.save_for_backward(a, h, h0)
         return h
 
     @staticmethod
     def backward(ctx, dy: Tensor):
         a, h, h0 = ctx.saved_tensors
-        if a.is_cuda:
-            da, db = lru_scan_bwd_cuda(a, h, h0, dy.to(a.dtype))
-            dh0 = (a[:, 0].float() * db[:, 0].float()).to(h0.dtype)
-        else:
-            da, db, dh0 = lru_scan_backward_plain(a, h, h0, dy)
+        da, db, dh0 = _lru_scan_bwd_op(a, h, h0, dy)
         return da, db, dh0 if ctx.needs_input_grad[2] else None
 
 
 def lru_scan(a: Tensor, b: Tensor, h0: Tensor) -> Tensor:
     """h_t = a_t h_{t-1} + b_t along T, h0 folded in.  Same signature as
     ``lru_scan_pallas``.  CUDA tensors run the kernel; CPU tensors run
-    ``lru_scan_plain``; under autograd with an input that requires a
-    gradient both go through ``LruScan``.  A DTensor is refused."""
+    ``lru_scan_plain``; fake and meta tensors take the shape rule; under
+    autograd with an input that requires a gradient all go through
+    ``LruScan``.  A DTensor is refused.  One custom op a call."""
     refuse_dtensor("lru_scan", a, b, h0)
-    if a.device.type != "cpu" and not a.is_cuda:
+    if a.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"lru_scan: no kernel for device {a.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):
         return LruScan.apply(a, b, h0)
-    if a.device.type == "cpu":
-        return lru_scan_plain(a, b, h0)
-    return lru_scan_cuda(a, b, h0)
+    return _lru_scan_op(a, b, h0)

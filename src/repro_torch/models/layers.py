@@ -247,10 +247,26 @@ def attention_spec(cfg: ModelConfig) -> Dict[str, P]:
     return spec
 
 
-def _project(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor, name: str) -> Tensor:
+def _project(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor, name: str,
+             mi: Optional[MeshInfo] = None) -> Tensor:
     """(B, T, D) -> (B, T, heads, hd) by ``w<name>``, plus ``b<name>`` under
-    ``use_bias``."""
-    y = torch.einsum("btd,dhk->bthk", x, params["w" + name])
+    ``use_bias``.  On a mesh the product runs on the weight flattened to
+    (D, heads x hd) and its output is pinned, the heads over the model axis
+    only where they divide it, before the heads are split out; the flat
+    weight is pinned to its own layout, so its gradient comes back in it
+    before the heads are folded in.  Left to DTensor's propagation, heads x
+    hd may be split through a head (3 KV heads of 64 over 2 shards), and
+    the view that splits the heads out, or folds them back, is refused."""
+    w = params["w" + name]
+    if mi is None:
+        y = torch.einsum("btd,dhk->bthk", x, w)
+    else:
+        d, h, k = w.shape
+        flat = w.reshape(d, h * k)
+        if is_dtensor(flat):
+            flat = flat.redistribute(flat.device_mesh, flat.placements)
+        y = constrain(x @ flat, mi, (mi.split(mi.batch_axes, x.shape[0]), None,
+                                     mi.split(mi.model_axis, h))).view(*x.shape[:2], h, k)
     return y + params["b" + name] if cfg.use_bias else y
 
 
@@ -376,10 +392,11 @@ def attention(
         if cfg.use_bias:
             q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     else:
-        q = _project(cfg, params, x, "q")
+        q = _project(cfg, params, x, "q", ctx.mesh_info)
         if not (cross and kv_x is None):
             src = x if kv_x is None else kv_x
-            k, v = _project(cfg, params, src, "k"), _project(cfg, params, src, "v")
+            k, v = (_project(cfg, params, src, "k", ctx.mesh_info),
+                    _project(cfg, params, src, "v", ctx.mesh_info))
     if positions is None:
         positions = torch.arange(t, device=x.device)
     if not cross:  # cross attention keeps the encoder's own representation

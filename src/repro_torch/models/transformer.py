@@ -82,9 +82,8 @@ def remat_policy(remat: str, weights) -> Any:
     sequence and one KV head: a bmm is kept only when an operand is a
     weight, and never at a batch above 1 (the MoE's per-expert products,
     recomputed as in the reference).  "outs" keeps what ``checkpoint_name``
-    named in ``SAVED_NAMES``.  Every other operation is recomputed: the
-    kernels' launches through ctypes are invisible here, and the policy sees
-    only their outputs' allocations, which must be made anew."""
+    named in ``SAVED_NAMES``.  Every other operation is recomputed, the
+    kernels' custom ops (K3's ``repro_torch::lru_scan``) among them."""
 
     def policy(ctx, op, *args, **kwargs):
         if remat == "outs":

@@ -6,10 +6,8 @@ a step count.  The update is done in float32 and cast once to each leaf's
 dtype, as the reference does: ``torch.optim.AdamW`` would do its arithmetic
 in a bfloat16 parameter's own dtype and round differently.  Leaves are
 updated one at a time, so the float32 temporaries of one leaf are freed
-before the next.  Nothing here reads the device.
-
-``abstract_state`` (abstract arrays for the dry run) is not ported: it waits
-for the dry run, ROADMAP item 13.
+before the next.  Nothing here reads the device.  ``abstract_state`` gives
+the state's shapes alone, for the dry run.
 """
 from __future__ import annotations
 
@@ -33,6 +31,16 @@ def init(params: Any, dtype=torch.float32) -> AdamWState:
     device = leaves(params)[0].device
     return AdamWState(m=tree_map(zeros, params), v=tree_map(zeros, params),
                       count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def abstract_state(abstract_params: Any, dtype=torch.float32) -> AdamWState:
+    """The state's shapes, allocating nothing: m and v in ``dtype`` on the
+    abstract parameters' device (``meta``, or fake tensors under
+    ``FakeTensorMode``), ``count`` an int32 scalar there."""
+    mk = lambda p: torch.empty(p.shape, dtype=dtype, device=p.device)
+    device = leaves(abstract_params)[0].device
+    return AdamWState(m=tree_map(mk, abstract_params), v=tree_map(mk, abstract_params),
+                      count=torch.empty((), dtype=torch.int32, device=device))
 
 
 def global_norm(tree: Any) -> Tensor:

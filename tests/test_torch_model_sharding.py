@@ -373,6 +373,19 @@ def test_checkpoint_moves_between_sharded_and_unsharded_trainers(name, run):
     np.testing.assert_allclose(resumed, source, rtol=LOSS_RTOL)
 
 
+@pytest.mark.parametrize("kind", world.COMPRESS)
+def test_a_compressing_trainer_on_a_mesh_trains_as_the_unsharded_one(kind, run):
+    """3 steps of Trainer(mesh_info=MeshInfo((2, 2))) with gradient
+    compression on 4 ranks: each replicated gradient is compressed whole,
+    so the losses are the unsharded compressed trainer's, the same on every
+    rank."""
+    got = case(run, "compress")
+    np.testing.assert_allclose(got[f"{kind}/sharded"], got[f"{kind}/plain"], rtol=LOSS_RTOL)
+    for r in range(1, world.WORLD):
+        np.testing.assert_array_equal(case(run, "compress", r)[f"{kind}/sharded"],
+                                      got[f"{kind}/sharded"])
+
+
 def test_kernel_wrappers_refuse_a_dtensor(run):
     got = case(run, "refusals")
     for name in ("decode_attention", "lru_scan"):

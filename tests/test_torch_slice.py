@@ -100,6 +100,10 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.train.train_step, repro_torch.train.trainer\n"
         "import repro_torch.launch.train, repro_torch.configs.shapes\n"
         "import repro_torch.core.sharding, repro_torch.sharding\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.optim.adamw\n"
+        "from repro_torch.optim.adamw import abstract_state\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing the dry run starts no world\n"
         "sys.path.insert(0, 'examples')\n"
         "import serve_partitioned_torch, train_hetero_torch, elastic_failover_torch\n"
         "bad = [m for m, mod in sys.modules.items()\n"

@@ -297,3 +297,54 @@ def test_a_trainer_given_a_mesh_info_trains_and_anything_else_is_refused(tmp_pat
     finally:
         dist.destroy_process_group()
     np.testing.assert_allclose(losses, plain, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["int8_ef", "topk_ef"])
+def test_a_compressing_trainer_on_a_mesh_trains_as_the_unsharded_one(tmp_path, kind):
+    """Gradient compression on the one-rank gloo world's (1, 1) mesh: the
+    error feedback takes the parameters' placements and each replicated
+    leaf is compressed whole, so the losses are the unsharded compressed
+    trainer's; the error feedback stays a tree of replicated DTensors."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import MeshInfo
+
+    run = _run_cfg(tmp_path / "plain", partitioner_enabled=False, grad_compression=kind)
+    plain = Trainer(run, num_microbatches=2, device="cpu").train(2).losses
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        run = _run_cfg(tmp_path / "mesh", partitioner_enabled=False, grad_compression=kind)
+        tr = Trainer(run, num_microbatches=2, mesh_info=MeshInfo(mesh, ("data",), "model"),
+                     device="cpu")
+        losses = tr.train(2).losses
+        ef = leaves(tr._ef)
+        assert all(isinstance(e, DTensor) and e.placements == tr.params["embed"].placements
+                   for e in ef)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(losses, plain, rtol=1e-5)
+
+
+def test_compression_refuses_a_leaf_split_over_a_mesh(tmp_path):
+    """A gradient sharded over a mesh dim is not compressed shard by shard:
+    the compressor raises and names the placements."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.distributed.compression import init_error_feedback, make_compressor
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("data",))
+        g = {"w": distribute_tensor(torch.ones(4, 2), mesh, [Shard(0)], src_data_rank=None)}
+        compress, _ = make_compressor("int8_ef", None)
+        with pytest.raises(ValueError, match="replicated on every mesh dim"):
+            compress(g, init_error_feedback(g))
+    finally:
+        dist.destroy_process_group()

@@ -29,6 +29,7 @@ FORWARD = ("tinyllama-1.1b", "recurrentgemma-2b", "xlstm-1.3b", "whisper-medium"
            "granite-moe-3b-a800m", "tinyllama-kv2")
 DECODE = ("tinyllama-1.1b", "recurrentgemma-2b", "xlstm-1.3b", "tinyllama-kv2")
 TRAIN = ("granite-moe-3b-a800m", "recurrentgemma-2b")
+COMPRESS = ("int8_ef", "topk_ef")  # the trainer's gradient compression, on reduced tinyllama
 MOE = "granite-moe-3b-a800m"
 B, T = 4, 16  # the batch divides the data axis; the sequence the model axis
 PROMPT, STEPS, MAX_LEN = 8, 3, 16
@@ -72,12 +73,13 @@ def inputs(cfg, b=B, t=T, seed=0):
     return out
 
 
-def train_run(run_config, shape_config, cfg, directory):
-    """The trainer's run: 8 x 32 tokens in 2 microbatches, no partitioner."""
+def train_run(run_config, shape_config, cfg, directory, **kw):
+    """The trainer's run: 8 x 32 tokens in 2 microbatches, no partitioner;
+    ``kw`` sets other fields (the gradient compression)."""
     return run_config(model=cfg, shape=shape_config("t", TRAIN_SEQ, TRAIN_BATCH, "train"),
                       learning_rate=1e-3, warmup_steps=1, total_steps=10, remat="none",
                       partitioner_enabled=False, checkpoint_every=10**6,
-                      checkpoint_dir=str(directory))
+                      checkpoint_dir=str(directory), **kw)
 
 
 # --------------------------------------------------------------------------
@@ -257,14 +259,14 @@ def case_grads(mi22, mi14):
     return out
 
 
-def _trainer(name, mi, directory):
+def _trainer(name, mi, directory, **kw):
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.distributed.sharding import replicated_specs, shard_tree
     from repro_torch.optim import adamw
     from repro_torch.train.trainer import Trainer
 
     cfg, _, params = _port(name)
-    tr = Trainer(train_run(RunConfig, ShapeConfig, cfg, directory), mesh_info=mi,
+    tr = Trainer(train_run(RunConfig, ShapeConfig, cfg, directory, **kw), mesh_info=mi,
                  num_microbatches=TRAIN_MB, device="cpu")
     state = adamw.init(params)  # the drawn weights, both packages
     if mi is not None:
@@ -307,6 +309,18 @@ def case_train(mi22, mi14, directory, rank):
     return out
 
 
+def case_compress(mi22, mi14, directory, rank):
+    """The trainer with each gradient compression on (2, 2) and unsharded,
+    from the same weights: the losses of each."""
+    out = {}
+    base = Path(directory) / f"compress{rank}"
+    for kind in COMPRESS:
+        for tag, mi in (("sharded", mi22), ("plain", None)):
+            tr = _trainer("tinyllama-1.1b", mi, base / kind / tag, grad_compression=kind)
+            out[f"{kind}/{tag}"] = np.array(tr.train(TRAIN_STEPS).losses)
+    return out
+
+
 def case_refusals(mi22, mi14):
     """A kernel wrapper handed a DTensor raises and names it."""
     import torch
@@ -328,7 +342,7 @@ def case_refusals(mi22, mi14):
             "lru_scan": error(lambda: ops.lru_scan(d(a), d(a)))}
 
 
-CASES = ("forward", "moe", "options", "decode", "grads", "train", "refusals")
+CASES = ("forward", "moe", "options", "decode", "grads", "train", "compress", "refusals")
 
 
 def rank_main(rank, world, directory):
@@ -345,7 +359,7 @@ def rank_main(rank, world, directory):
         for name in CASES:
             case = globals()[f"case_{name}"]
             try:
-                got = (case(mi22, mi14, directory, rank) if name == "train"
+                got = (case(mi22, mi14, directory, rank) if name in ("train", "compress")
                        else case(mi22, mi14))
             except Exception:  # noqa: BLE001 — each test reads its own case's failure
                 errors[name] = traceback.format_exc()
