@@ -4055,8 +4055,31 @@ def dryrun_cell(device, proc, t0):
         f"(arguments {full['memory']['argument_bytes']:.6e}), kernel calls "
         f"{full['kernel_calls']}; the step {full['step_seconds']} s, done {time.time() - t0:.1f} s "
         f"after the phase's start")
+    roof = cell["roofline"]
+    say(f"[dryrun] {cell['cell']} --device {device} roofline (the H100 model's seconds, not a "
+        f"measured time): terms {roof['terms_seconds']}, dominant {roof['dominant']}, bound "
+        f"{roof['roofline_bound_s']:.6e} s; collective bytes by axis "
+        f"{roof['per_device']['collective_by_axis']}; units "
+        f"{[(u['name'], u['trips']) for u in roof['units']]}")
     return cell
 
+
+# The train step's units (the optimizer's among them) of full-width smollm-135m
+# cut to 2 layers, 8 x 64 tokens in 4 microbatches on a (2, 2) mesh of the
+# fake world, on the route argv[1] names: what both routes must count alike
+TRAIN_UNITS_CODE = """
+import dataclasses, json, sys, torch
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.configs import RunConfig, ShapeConfig, get_arch
+from repro_torch.launch import dryrun
+dryrun.fake_world()
+cfg = dataclasses.replace(get_arch("smollm-135m"), num_layers=2)
+shape = ShapeConfig("cut", seq_len=64, global_batch=8, kind="train")
+mesh = DeviceMesh(sys.argv[1], torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+run = RunConfig(model=cfg, shape=shape, optimizer_dtype="float32", remat="full")
+units = dryrun.train_units(cfg, run, shape, mesh, 4)
+print(json.dumps([dataclasses.asdict(u) for u in units]))
+"""
 
 ESTIMATE_CODE = """
 import json, sys, dataclasses
@@ -4071,7 +4094,12 @@ print(json.dumps(dryrun.cut_cell(cfg, shape, (1, 1), device=device)))
 
 def phase_dryrun(device="cuda", small=False):
     """Phase 24: the dry run of DRYRUN_CELL on both routes (``--device cuda``
-    and ``cpu``: the same counts, exactly); then ``dryrun.cut_cell`` of its
+    and ``cpu``: the same counts and the same unit roofline, exactly; the
+    reference test's conditions on the roofline, memory-bound under 50 ms;
+    the vocab-split lookup's all-gather under 1 MB), its tables by
+    ``python -m repro_torch.launch.report``, and a cut train step's units
+    on both routes (every count of every unit equal); then
+    ``dryrun.cut_cell`` of its
     decode step cut to DRYRUN_CHECK_BATCH sequences on a (1, 1) mesh, and
     the same step run for real on a (1, 1) mesh over a one-rank world (NCCL
     on the card), its peak (``max_memory_allocated`` above what was
@@ -4094,20 +4122,46 @@ def phase_dryrun(device="cuda", small=False):
     cfg = reduced(get_arch(arch)) if small else get_arch(arch)
     shape = dataclasses.replace(get_shape(shape_name), global_batch=DRYRUN_CHECK_BATCH)
     t0 = time.time()  # the two routes and the estimate run at once, each a process
-    procs = {d: start_dryrun_cell(d) for d in (("cuda", "cpu") if device != "cpu" else ("cpu",))}
+    devices = ("cuda", "cpu") if device != "cpu" else ("cpu",)
+    procs = {d: start_dryrun_cell(d) for d in devices}
+    units = {d: start_src([sys.executable, "-c", TRAIN_UNITS_CODE, d]) for d in devices}
     estimate = start_src([sys.executable, "-c", ESTIMATE_CODE, json.dumps(
         [arch, shape_name, DRYRUN_CHECK_BATCH, small, device])])
     routes = {d: dryrun_cell(d, proc, t0) for d, proc in procs.items()}
+    units = {d: json.loads(wait_src(proc, f"dryrun-units-{d}").splitlines()[-1])
+             for d, proc in units.items()}
+    first_units = next(iter(units.values()))
+    for d, us in units.items():
+        say(f"[dryrun-units] smollm-135m cut to 2 layers, train 8 x 64 on (2, 2), --device {d}: "
+            + "; ".join(f"{u['name']} x{u['trips']} flops {u['flops']:.6e} bytes {u['bytes']:.6e} "
+                        f"collectives {u['coll']} by axis {u['coll_by_axis']}" for u in us))
+        if us != first_units or us[-1]["name"] != "optimizer":
+            raise AssertionError(f"[dryrun-units] --device {d}'s train units differ")
     first = next(iter(routes.values()))
     for d, cell in routes.items():
         diff = [k for k in DRYRUN_KEYS if cell["full"][k] != first["full"][k]]
         if diff:
             raise AssertionError(f"[dryrun] --device {d} differs from the other route in {diff}")
-    full = first["full"]
+        if cell["roofline"] != first["roofline"]:
+            raise AssertionError(f"[dryrun] --device {d}'s roofline differs from the other route's")
+    full, roof = first["full"], first["roofline"]
     if first["chips"] != 256 or first["mesh"] != {"data": 16, "model": 16} or \
             not (full["full_cost"]["flops"] > 0 and full["memory"]["peak_bytes_est"] > 0):
         raise AssertionError(f"[dryrun] cell {first}")
-    say(f"[dryrun] both routes agree exactly on {', '.join(DRYRUN_KEYS)}")
+    # the reference test's conditions, and the vocab-split lookup's (fault 3j)
+    if roof["dominant"] != "memory_s" or not roof["roofline_bound_s"] < 0.05 or \
+            not roof["per_device"]["flops"] > 0:
+        raise AssertionError(f"[dryrun] roofline {roof['terms_seconds']}, {roof['dominant']}")
+    if not full["full_coll"]["all-gather"] < 1_000_000:
+        raise AssertionError(f"[dryrun] all-gather {full['full_coll']['all-gather']} B, not < 1 MB")
+    say(f"[dryrun] both routes agree exactly on {', '.join(DRYRUN_KEYS)} and the roofline; "
+        f"memory-bound, bound {1e3 * roof['roofline_bound_s']:.4f} ms < 50 ms; all-gather "
+        f"{full['full_coll']['all-gather']} B < 1 MB")
+    route = "cuda" if device != "cpu" else "cpu"
+    tables = wait_src(start_src([sys.executable, "-m", "repro_torch.launch.report", "--dir",
+                                 str(DRYRUN_DIR / route)]), "dryrun-report")
+    for line in tables.strip().splitlines():
+        say(f"[dryrun-report] {line}")
 
     est = json.loads(wait_src(estimate, "dryrun-estimate").splitlines()[-1])
     want_calls = {"decode_attention": attention_layers(cfg)}

@@ -117,7 +117,26 @@ def constrain_batch(x: Tensor, ctx: ApplyCtx, tail=None) -> Tensor:
     if mi is None or not mi.batch_axes:
         return x
     tail = tail if tail is not None else [None] * (x.ndim - 1)
-    return constrain(x, mi, (mi.batch_axes, *tail))
+    # a batch the data axes do not divide (long_500k's one sequence) is
+    # replicated: an uneven split leaves shards that later reshapes refuse
+    return constrain(x, mi, (mi.split(mi.batch_axes, x.shape[0]), *tail))
+
+
+def zero_gathered(w: Tensor, mi: Optional[MeshInfo]) -> Tensor:
+    """A weight whole over the data axes (a ZeRO split gathered, as
+    ``heads_product`` gathers its weight), its other placements kept; its
+    gradient comes back as a reduce-scatter.  Left to DTensor, a product of
+    batch-split activations and a weight split on the contracted dim may
+    move the activations by an all-to-all instead, which gloo runs as an
+    all-gather: the two device types would count different collectives."""
+    if mi is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = mi.mesh.mesh_dim_names
+    pl = tuple(Replicate() if p.is_shard() and names[m] in mi.batch_axes else p
+               for m, p in enumerate(w.placements))
+    return w if pl == tuple(w.placements) else w.redistribute(w.device_mesh, pl)
 
 
 def write_state(dst: Tensor, src: Tensor) -> None:
@@ -210,19 +229,21 @@ def mlp_spec(cfg: ModelConfig) -> Dict[str, P]:
 def mlp(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor,
         ctx: Optional[ApplyCtx] = None) -> Tensor:
     gated = cfg.act in ("swiglu", "geglu")
+    mi = None if ctx is None else ctx.mesh_info
+    w = {k: zero_gathered(params[k], mi) for k in ("wi", "wg", "wo") if k in params}
     if ctx is not None and ctx.fuse_projections and gated:
         f = cfg.d_ff
-        both = x @ torch.cat([params["wi"], params["wg"]], dim=1)
+        both = x @ torch.cat([w["wi"], w["wg"]], dim=1)
         up, gate = both[..., :f], both[..., f:]
         if cfg.use_bias:
             up = up + params["bi"]
         h = activate(cfg.act, gate, up)
     else:
-        up = x @ params["wi"]
+        up = x @ w["wi"]
         if cfg.use_bias:
             up = up + params["bi"]
-        h = activate(cfg.act, x @ params["wg"], up) if gated else activate(cfg.act, up, up)
-    y = h @ params["wo"]
+        h = activate(cfg.act, x @ w["wg"], up) if gated else activate(cfg.act, up, up)
+    y = h @ w["wo"]
     return y + params["bo"] if cfg.use_bias else y
 
 
@@ -250,24 +271,56 @@ def attention_spec(cfg: ModelConfig) -> Dict[str, P]:
 def _project(cfg: ModelConfig, params: Dict[str, Tensor], x: Tensor, name: str,
              mi: Optional[MeshInfo] = None) -> Tensor:
     """(B, T, D) -> (B, T, heads, hd) by ``w<name>``, plus ``b<name>`` under
-    ``use_bias``.  On a mesh the product runs on the weight flattened to
-    (D, heads x hd) and its output is pinned, the heads over the model axis
-    only where they divide it, before the heads are split out; the flat
-    weight is pinned to its own layout, so its gradient comes back in it
-    before the heads are folded in.  Left to DTensor's propagation, heads x
-    hd may be split through a head (3 KV heads of 64 over 2 shards), and
-    the view that splits the heads out, or folds them back, is refused."""
+    ``use_bias``.  On a mesh the product runs shard by shard
+    (``heads_product``), the heads over the model axis only where they
+    divide it.  Left to DTensor's propagation, heads x hd may be split
+    through a head (3 KV heads of 64 over 2 shards), and the view that
+    splits the heads out, or folds their gradient back, is refused."""
     w = params["w" + name]
-    if mi is None:
-        y = torch.einsum("btd,dhk->bthk", x, w)
-    else:
-        d, h, k = w.shape
-        flat = w.reshape(d, h * k)
-        if is_dtensor(flat):
-            flat = flat.redistribute(flat.device_mesh, flat.placements)
-        y = constrain(x @ flat, mi, (mi.split(mi.batch_axes, x.shape[0]), None,
-                                     mi.split(mi.model_axis, h))).view(*x.shape[:2], h, k)
+    eq = "btd,dhk->bthk"
+    y = torch.einsum(eq, x, w) if mi is None else heads_product(eq, x, w, mi, 1, out_dim=2)
     return y + params["b" + name] if cfg.use_bias else y
+
+
+def heads_product(eq: str, x: Tensor, w: Tensor, mi: MeshInfo, w_dim: int,
+                  out_dim: Optional[int] = None, x_dim: Optional[int] = None) -> Tensor:
+    """``torch.einsum(eq, x, w)`` of activations x (B, ...) and a weight w
+    whose dim ``w_dim`` holds heads, on a mesh: shard by shard under
+    ``local_map``, x with its batch over the data axes where they divide it,
+    w whole over the data axes (a ZeRO split is gathered) and its heads over
+    the model axis where they divide it, the output's batch (dim 0) placed
+    likewise.  A projection (``out_dim``: the output's heads dim) places the
+    output's heads as w's; a contraction over the heads (``x_dim``: x's
+    heads dim, placed as w's) returns a partial sum over the model axis
+    where the heads split.  Each shard's product is the unsharded one on its
+    rows and heads, so no product or reshape of a head axis is left to
+    DTensor's propagation (which splits a flattened head axis unevenly, or
+    refuses a view of its gradient).  In the backward, w's gradient is a
+    partial sum over the data axes that split the batch, and a projection's
+    x's over the model axis that splits the heads."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    batch = mi.split(mi.batch_axes, x.shape[0])
+    heads = mi.split(mi.model_axis, w.shape[w_dim])
+    x_spec, w_spec = [batch] + [None] * (x.ndim - 1), [None] * w.ndim
+    out_spec = [batch] + [None] * (len(eq.split("->")[1]) - 1)
+    w_spec[w_dim] = heads
+    for spec, dim in ((x_spec, x_dim), (out_spec, out_dim)):
+        if dim is not None:
+            spec[dim] = heads
+    x_pl, w_pl, out_pl = (mi.placements(*spec) for spec in (x_spec, w_spec, out_spec))
+    split = [q.is_shard(w_dim) for q in w_pl]  # the mesh dims that split the heads
+    if out_dim is None:
+        out_pl = tuple(Partial() if h else p for p, h in zip(out_pl, split))
+    x_grad = x_pl if x_dim is not None else tuple(
+        Partial() if h else p for p, h in zip(x_pl, split))
+    w_grad = tuple(Partial() if q.is_shard(0) else p for p, q in zip(w_pl, x_pl))
+    return local_map(lambda a, b: torch.einsum(eq, a, b), out_placements=(out_pl,),
+                     in_placements=(x_pl, w_pl), in_grad_placements=(x_grad, w_grad),
+                     device_mesh=mi.mesh, redistribute_inputs=True)(
+        x if is_dtensor(x) else constrain(x, mi, x_spec),
+        w if is_dtensor(w) else constrain(w, mi, w_spec))
 
 
 def _seq_shard(x: Tensor, ctx: ApplyCtx, dim: int) -> Tensor:
@@ -428,7 +481,11 @@ def attention(
     else:
         raise ValueError(ctx.mode)
 
-    y = torch.einsum("bthk,hkd->btd", out.to(x.dtype), params["wo"])
+    eq = "bthk,hkd->btd"
+    if mi is None:
+        y = torch.einsum(eq, out.to(x.dtype), params["wo"])
+    else:
+        y = heads_product(eq, out.to(x.dtype), params["wo"], mi, 0, x_dim=2)
     return y, cache
 
 

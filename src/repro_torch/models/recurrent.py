@@ -28,7 +28,17 @@ from torch import Tensor
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .layers import NEG_INF, ApplyCtx, MeshInfo, _seq_shard, pin_heads, write_state
+from ..device import is_dtensor
+from .layers import (
+    NEG_INF,
+    ApplyCtx,
+    MeshInfo,
+    _seq_shard,
+    constrain,
+    heads_product,
+    pin_heads,
+    write_state,
+)
 from .params import P
 
 # ---------------------------------------------------------------------------
@@ -50,23 +60,47 @@ def mlstm_spec(cfg: ModelConfig) -> Dict[str, P]:
     }
 
 
+def _log_sigmoid(x: Tensor) -> Tensor:
+    """``F.logsigmoid``; a DTensor's on each shard under ``local_map`` (a
+    partial sum first made whole), because DTensor registers no sharding
+    strategy for its forward or its backward in some torch versions.  It is
+    elementwise, so each shard's is exact."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return local_map(F.logsigmoid, out_placements=(pl,), in_placements=(pl,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)
+
+
 def _mlstm_qkv(cfg: ModelConfig, params, x: Tensor, mi: Optional[MeshInfo] = None):
     """q, k, v and the output gate o (B, H, T, hd) in x's dtype; log i and
     log f (B, H, T) in float32, cast after the gates are computed in x's
-    dtype, as the reference casts them."""
+    dtype, as the reference casts them.  On a mesh each head's q, k, v and
+    gates lie on one shard (the heads over the model axis where they divide
+    it): the products run shard by shard (``heads_product``) and the gates
+    are pinned before their slices."""
     h = cfg.num_heads
     hd = x.shape[-1] // h
-    q = torch.einsum("btd,dhk->bhtk", x, params["wq"])
+    eq = "btd,dhk->bhtk"
+    if mi is None:
+        proj = lambda w: torch.einsum(eq, x, w)
+    else:
+        proj = lambda w: heads_product(eq, x, w, mi, 1, out_dim=1)
+    q = proj(params["wq"])
     # the scale is cast to the activations' dtype first, as JAX's weak scalar is
-    k = torch.einsum("btd,dhk->bhtk", x, params["wk"]) * torch.tensor(
-        hd**-0.5, dtype=x.dtype, device=x.device)
-    v = torch.einsum("btd,dhk->bhtk", x, params["wv"])
+    k = proj(params["wk"]) * torch.tensor(hd**-0.5, dtype=x.dtype, device=x.device)
+    v = proj(params["wv"])
     gates = x @ params["wif"] + params["bif"]  # (B, T, 2H)
+    if mi is not None:
+        gates = constrain(gates, mi, (mi.split(mi.batch_axes, x.shape[0]), None, None))
     log_i = gates[..., :h].transpose(1, 2).float()
-    log_f = F.logsigmoid(gates[..., h:]).transpose(1, 2).float()
-    o = torch.sigmoid(torch.einsum("btd,dhk->bhtk", x, params["wog"]))
-    if mi is not None:  # each head's q, k, v, gates on one shard
-        q, k, v, log_i, log_f, o = (pin_heads(a, mi, 1, h) for a in (q, k, v, log_i, log_f, o))
+    log_f = _log_sigmoid(gates[..., h:]).transpose(1, 2).float()
+    o = torch.sigmoid(proj(params["wog"]))
+    if mi is not None:
+        log_i, log_f = (pin_heads(a, mi, 1, h) for a in (log_i, log_f))
     return q, k, v, log_i, log_f, o
 
 
@@ -96,9 +130,12 @@ def _mlstm_parallel(cfg: ModelConfig, params, x: Tensor, ctx: ApplyCtx):
     hh = torch.cat([chunk_out(q[:, :, s:s + chunk], fcum[..., s:s + chunk], pos[s:s + chunk])
                     for s in range(0, t, chunk)], dim=2)
     hh = (o.float() * hh).to(x.dtype)  # (B, H, T, hd)
-    if ctx.mesh_info is not None:
-        hh = pin_heads(hh, ctx.mesh_info, 1, cfg.num_heads)
-    return torch.einsum("bhtk,hkd->btd", hh, params["wo"]), (k32, v32, log_i, fcum)
+    eq = "bhtk,hkd->btd"
+    if ctx.mesh_info is None:
+        y = torch.einsum(eq, hh, params["wo"])
+    else:
+        y = heads_product(eq, hh, params["wo"], ctx.mesh_info, 0, x_dim=1)
+    return y, (k32, v32, log_i, fcum)
 
 
 def mlstm_final_state(k32: Tensor, v32: Tensor, log_i: Tensor, fcum: Tensor) -> Dict[str, Tensor]:
@@ -215,6 +252,44 @@ def _slstm_step(r_rows: Tensor, b32: Tensor, state: Tuple[Tensor, ...], xt: Tens
     return c_new, n_new, o * (c_new / n_new), m_new
 
 
+def _slstm_loop(r_rows: Tensor, b32: Tensor, pre: Tensor, *state: Tensor):
+    """The step over pre's T positions from ``state`` (c, n, h, m).  Returns
+    the h of every step (B, T, H, hd) in float32 and the last state."""
+    hs = []
+    for i in range(pre.shape[1]):
+        state = _slstm_step(r_rows, b32, state, pre[:, i])
+        hs.append(state[2])
+    return (torch.stack(hs, dim=1), *state)
+
+
+def _slstm_loop_on_mesh(mi: MeshInfo, heads: int, r_rows: Tensor, b32: Tensor, pre: Tensor,
+                        state: Tuple[Tensor, ...]):
+    """``_slstm_loop`` shard by shard under ``local_map``: each shard steps
+    its batch rows (over the data axes where they divide them) and its heads
+    (over the model axis where they divide it).  A step mixes nothing
+    across rows or heads, so each shard's loop is exact, and DTensor
+    dispatches nothing inside it.  The weights' gradients are partial sums
+    over the data axes that split the batch."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    batch, split = mi.split(mi.batch_axes, pre.shape[0]), mi.split(mi.model_axis, heads)
+    rows, seq = mi.placements(batch, split, None), mi.placements(batch, None, None, split, None)
+    out = mi.placements(batch, None, split, None)
+    weights = (mi.placements(split, None, None), mi.placements(None, split, None))
+    grads = tuple(tuple(Partial() if q.is_shard(0) else p for p, q in zip(pl, rows))
+                  for pl in weights)
+    r_rows, b32, pre, *state = (a if is_dtensor(a) else constrain(a, mi, spec)
+                                for a, spec in zip((r_rows, b32, pre, *state),
+                                                   ((split, None, None), (None, split, None),
+                                                    (batch, None, None, split, None))
+                                                   + ((batch, split, None),) * len(state)))
+    return local_map(_slstm_loop, out_placements=(out,) + (rows,) * len(state),
+                     in_placements=weights + (seq,) + (rows,) * len(state),
+                     in_grad_placements=grads + (seq,) + (rows,) * len(state),
+                     device_mesh=mi.mesh, redistribute_inputs=True)(r_rows, b32, pre, *state)
+
+
 def slstm_block(
     cfg: ModelConfig,
     params: Dict[str, Tensor],
@@ -226,20 +301,30 @@ def slstm_block(
     """Returns (y, cache).  Every mode runs the step over x's T positions from
     the cache's state (the zero state without a cache), in a loop on the
     device that reads nothing back; decode is the loop at T = 1.  Prefill
-    and decode leave the last state in the cache, in place."""
+    and decode leave the last state in the cache, in place.  On a mesh the
+    input product and the loop run shard by shard (``heads_product``,
+    ``_slstm_loop_on_mesh``), each head on one shard where the heads divide
+    the model axis."""
     b, t, _ = x.shape
-    pre = torch.einsum("btd,dghk->btghk", x, params["wx"]).float()  # (B, T, 4, H, hd)
+    mi = ctx.mesh_info
+    eq = "btd,dghk->btghk"
+    if mi is None:
+        pre = torch.einsum(eq, x, params["wx"]).float()  # (B, T, 4, H, hd)
+    else:
+        pre = heads_product(eq, x, params["wx"], mi, 2, out_dim=3).float()
     r = params["r"].float()  # (4, H, hd, hd): the reference promotes it to h's float32
     r_rows = r.permute(1, 2, 0, 3).reshape(r.shape[1], r.shape[2], -1)
     b32 = params["b"].float()
     start = init_slstm_cache(cfg, b, x.device) if cache is None else cache
     state = tuple(start[key] for key in _SLSTM_STATE)
-    hs = []
-    for i in range(t):
-        state = _slstm_step(r_rows, b32, state, pre[:, i])
-        hs.append(state[2])
-    hh = torch.stack(hs, dim=1).to(x.dtype)  # (B, T, H, hd)
-    y = torch.einsum("bthk,hkd->btd", hh, params["wo"])
+    if mi is None:
+        hh, *state = _slstm_loop(r_rows, b32, pre, *state)
+    else:
+        hh, *state = _slstm_loop_on_mesh(mi, cfg.num_heads, r_rows, b32, pre, state)
+    hh = hh.to(x.dtype)  # (B, T, H, hd)
+    eq = "bthk,hkd->btd"
+    y = torch.einsum(eq, hh, params["wo"]) if mi is None else \
+        heads_product(eq, hh, params["wo"], mi, 0, x_dim=2)
     if cache is not None and ctx.mode != "train":
         for key, value in zip(_SLSTM_STATE, state):
             write_state(cache[key], value)

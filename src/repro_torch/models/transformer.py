@@ -26,7 +26,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..configs.base import ModelConfig
-from ..device import local
+from ..device import is_dtensor, local
 from . import moe as moe_lib
 from . import recurrent as rec
 from .layers import (
@@ -34,6 +34,7 @@ from .layers import (
     attention,
     attention_spec,
     checkpoint_name,
+    constrain,
     constrain_batch,
     init_attention_cache,
     mesh_scope,
@@ -41,6 +42,7 @@ from .layers import (
     mlp_spec,
     rmsnorm,
     rmsnorm_spec,
+    zero_gathered,
 )
 from .params import P, leaves, stack_spec, tree_map
 
@@ -227,6 +229,48 @@ def lm_spec(cfg: ModelConfig) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def _lookup(emb: Tensor, tokens: Tensor, ctx: Optional[ApplyCtx]) -> Tensor:
+    """``emb[tokens]``, on a mesh shard by shard on the local tokens.  Where
+    the model axis splits the table's vocab and nothing its rows (the
+    serving layout, ``default_rules(fsdp=False)``) the lookup is GSPMD's if
+    it moves fewer bytes: each shard looks up the tokens that fall in its
+    rows [lo, hi) and zeroes the rest, and one all-reduce of (B, T, D) over
+    the model axis sums the shards' outputs; each sum adds one row to
+    zeros, so the result is bitwise the whole table's lookup.  Otherwise
+    (a long prefill, where twice a rank's B x T rows outnumber the V rows
+    of the table; a ZeRO split of the rows in training) the whole table is
+    gathered on every rank.  Either way the table's gradient is a partial
+    sum over the data axes that split the tokens; DTensor's own lookup
+    gathers the table too, but its backward fails on some torch versions."""
+    mi = None if ctx is None else ctx.mesh_info
+    if mi is None or not is_dtensor(emb) or not is_dtensor(tokens):
+        return emb[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    pl, tok_pl, idx = emb.placements, tokens.placements, local(tokens)
+    grad = lambda table: tuple(Partial() if q.is_shard(0) else p for p, q in zip(table, tok_pl))
+    split = [m for m, p in enumerate(pl) if p.is_shard(0)]
+    if len(split) == 1 and not any(p.is_shard(1) for p in pl) and 2 * idx.numel() < emb.shape[0]:
+        dim = split[0]
+        n = emb.shape[0] // mi.mesh.size(dim)
+        idx = idx - mi.mesh.get_local_rank(dim) * n
+        own = (idx >= 0) & (idx < n)
+        rows = emb.to_local(grad_placements=grad(pl))[torch.where(own, idx, 0)]
+        rows = torch.where(own[..., None], rows, 0)
+        out_pl = tuple(Partial() if m == dim else p for m, p in enumerate(tok_pl))
+    else:
+        whole = emb.redistribute(emb.device_mesh, (Replicate(),) * len(pl))
+        rows = whole.to_local(grad_placements=grad(whole.placements))[idx]
+        out_pl = tok_pl
+    shape = (*tokens.shape, emb.shape[1])
+    # the output's strides are given: those DTensor would infer from the local
+    # shard's give a (B, 1, D) decode batch an unusual layout, on which a
+    # later product dispatches a batched copy of its weight
+    out = DTensor.from_local(rows, mi.mesh, out_pl, run_check=False, shape=shape,
+                             stride=torch.empty(shape, device="meta").stride())
+    return constrain(out, mi, (mi.split(mi.batch_axes, out.shape[0]),) + (None,) * (out.ndim - 1))
+
+
 def _embed(cfg: ModelConfig, params, tokens: Tensor, vision: Optional[Tensor] = None,
            ctx: Optional[ApplyCtx] = None) -> Tensor:
     """Token embeddings, after the projected patch embeddings ``vision``
@@ -235,7 +279,8 @@ def _embed(cfg: ModelConfig, params, tokens: Tensor, vision: Optional[Tensor] = 
     emb = params["embed"]
     if ctx is not None:
         tokens = constrain_batch(tokens, ctx)
-    x = emb[tokens] * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype, device=emb.device)
+    x = _lookup(emb, tokens, ctx) * torch.tensor(cfg.d_model**0.5, dtype=emb.dtype,
+                                                 device=emb.device)
     if vision is not None:
         x = torch.cat([vision.to(x.dtype) @ params["vision_proj"], x], dim=1)
     return x if ctx is None else constrain_batch(x, ctx)
@@ -244,14 +289,14 @@ def _embed(cfg: ModelConfig, params, tokens: Tensor, vision: Optional[Tensor] = 
 def _head(cfg: ModelConfig, params, x: Tensor, ctx: Optional[ApplyCtx] = None) -> Tensor:
     """Logits; on a mesh the batch over the data axes and the vocab over the
     model axis where it divides."""
+    mi = None if ctx is None else ctx.mesh_info
     if cfg.tie_embeddings:
-        logits = torch.einsum("btd,vd->btv", x, params["embed"])
+        logits = torch.einsum("btd,vd->btv", x, zero_gathered(params["embed"], mi))
     else:
-        logits = torch.einsum("btd,dv->btv", x, params["head"])
+        logits = torch.einsum("btd,dv->btv", x, zero_gathered(params["head"], mi))
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    mi = None if ctx is None else ctx.mesh_info
     if mi is not None:
         vocab = mi.split(mi.model_axis, cfg.vocab_size)
         logits = constrain_batch(logits, ctx, tail=[None] * (logits.ndim - 2) + [vocab])

@@ -201,10 +201,12 @@ def make_train_step(
 
 def make_optimizer_unit(cfg: ModelConfig, run: RunConfig) -> Callable:
     """Optimizer-only unit: (params, opt_state, grads) -> (params, opt_state,
-    grad_norm) at the run's base learning rate."""
+    grad_norm) at the run's base learning rate, made on the parameters'
+    device."""
 
     def opt_fn(params, opt_state, grads):
-        return adamw.apply(params, grads, opt_state, torch.tensor(run.learning_rate),
+        lr = torch.tensor(run.learning_rate, device=leaves(params)[0].device)
+        return adamw.apply(params, grads, opt_state, lr,
                            weight_decay=run.weight_decay, grad_clip=run.grad_clip)
 
     return opt_fn

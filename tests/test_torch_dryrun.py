@@ -315,9 +315,21 @@ class FakeMesh:
 def test_main_runs_the_reference_tests_cell(tmp_path):
     """``python -m repro_torch.launch.dryrun`` on the reference test's cell
     with ``--device cpu``: 256 chips on the (16, 16) mesh, per-device FLOPs
-    and a peak above 0, K2 once a layer, no roofline yet (item 13b), and
-    argument bytes equal to the local shard bytes of the reference's layout
-    on a ``FakeMesh(data=16, model=16)``."""
+    and a peak above 0, K2 once a layer, argument bytes equal to the local
+    shard bytes of the reference's layout on a ``FakeMesh(data=16,
+    model=16)``, and the embedding looked up on each shard of the
+    vocab-split table (fault 3j: the all-gather under 1 MB, where gathering
+    the table moved 131 072 000 B).
+
+    The roofline holds the reference test's conditions: memory-bound, a
+    bound under 50 ms, FLOPs above 0.  tinyllama has 22 one-layer cycles and
+    no ``rest``, so the units (22 x ``cycle_decode``, ``embed_head_decode``)
+    cover the whole step: their scaled FLOPs equal ``full_cost``'s (on
+    torch 2.13: exactly), their bytes come within 0.1 % (0.03 %: the step's final
+    norm reads the last cycle's output, the unit's head a sum), and their
+    collective bytes within 3 % by kind (1.9 % of the all-reduce: the step
+    reduces the last cycle's partial sums inside its final norm, in float32,
+    where a unit makes its output whole in bfloat16); the all-gather equal."""
     arch, shape, mesh = CELL
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
@@ -333,9 +345,24 @@ def test_main_runs_the_reference_tests_cell(tmp_path):
     assert mem["peak_bytes_est"] > 0 and mem["alias_bytes"] == 0
     assert mem["peak_bytes_est"] == mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
     assert full["kernel_calls"] == {"decode_attention": get_arch(arch).num_layers}
-    assert "roofline" not in cell
     assert mem["argument_bytes"] == reference_argument_bytes(arch, shape,
                                                              FakeMesh(data=16, model=16))
+    assert full["full_coll"]["all-gather"] < 1_000_000
+    roof = cell["roofline"]
+    assert roof["dominant"] == "memory_s" and roof["roofline_bound_s"] < 0.05
+    per = roof["per_device"]
+    assert per["flops"] > 0
+    assert [(u["name"], u["trips"]) for u in roof["units"]] == [("cycle_decode", 22),
+                                                                ("embed_head_decode", 1)]
+    assert per["flops"] == pytest.approx(full["full_cost"]["flops"], rel=0.01)
+    assert per["bytes"] == pytest.approx(full["full_cost"]["bytes"], rel=0.001)
+    for kind, n in full["full_coll"].items():
+        assert per["collective_breakdown"][kind] == pytest.approx(n, rel=0.03), kind
+    assert per["collective_breakdown"]["all-gather"] == full["full_coll"]["all-gather"]
+    assert set(per["collective_by_axis"]) == {"model"}  # decode's collectives: all over model
+    assert sum(per["collective_by_axis"].values()) == per["collective_bytes"]
+    assert roof["terms_seconds"]["collective_s"] == pytest.approx(
+        per["collective_by_axis"]["model"] / 400e9)
 
 
 CUT_CODE = """

@@ -390,3 +390,27 @@ def test_kernel_wrappers_refuse_a_dtensor(run):
     got = case(run, "refusals")
     for name in ("decode_attention", "lru_scan"):
         assert str(got[name]).startswith(f"TypeError: {name} was handed a DTensor")
+
+
+@pytest.mark.parametrize("mesh", ["22", "14"])
+def test_xlstm_trains_on_a_mesh_as_the_unsharded_one(mesh, run):
+    """Fault 3i: a training microbatch of reduced xlstm (4 heads; 7 mLSTM
+    layers and an sLSTM layer) on (2, 2), where the heads split 2 and 2,
+    and on (1, 4), one head a shard: the mLSTM's and sLSTM's projections
+    and the sLSTM's loop run shard by shard, log sigmoid on each shard.  The
+    loss and every gradient within 1e-5 of the unsharded twin's."""
+    got = case(run, "xlstm")
+    loss = got[f"{mesh}/loss"]
+    np.testing.assert_allclose(loss[1], loss[0], rtol=1e-5)
+    assert float(got[f"{mesh}/grad_err"]) <= 1e-5
+
+
+def test_a_vocab_split_lookup_is_bitwise_the_whole_tables(run):
+    """Fault 3j: the embedding from a table whose vocab the model axis of
+    (1, 4) splits (the serving layout) is the masked lookup summed by one
+    all-reduce: bitwise the unsharded lookup, and so is the table's
+    gradient."""
+    got = case(run, "lookup")
+    assert str(got["table_placements"]) == "(Replicate(), Shard(dim=0))"
+    np.testing.assert_array_equal(got["sharded/x"], got["plain/x"])
+    np.testing.assert_array_equal(got["sharded/grad"], got["plain/grad"])

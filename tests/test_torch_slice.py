@@ -101,6 +101,7 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.launch.train, repro_torch.configs.shapes\n"
         "import repro_torch.core.sharding, repro_torch.sharding\n"
         "import repro_torch.launch.mesh, repro_torch.launch.dryrun, repro_torch.optim.adamw\n"
+        "import repro_torch.launch.report\n"
         "from repro_torch.optim.adamw import abstract_state\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()  # importing the dry run starts no world\n"

@@ -259,6 +259,69 @@ def case_grads(mi22, mi14):
     return out
 
 
+def case_xlstm(mi22, mi14):
+    """Fault 3i: one training microbatch of reduced xlstm (7 mLSTM and 1
+    sLSTM layer, 4 heads) on (2, 2) (the heads split 2 and 2) and (1, 4)
+    (one head a shard) against the unsharded one: the loss, and each
+    gathered gradient's largest error relative to its leaf's largest
+    magnitude."""
+    import torch
+
+    from repro_torch.models.layers import ApplyCtx
+    from repro_torch.models.params import leaves
+    from repro_torch.train import train_step
+
+    cfg, _, params = _port("xlstm-1.3b")
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    (loss, _), plain = train_step.microbatch_value_and_grad(cfg, ApplyCtx(mode="train"))(
+        params, batch)
+    out = {}
+    for tag, mi in (("22", mi22), ("14", mi14)):
+        (mloss, _), grads = train_step.microbatch_value_and_grad(
+            cfg, ApplyCtx(mode="train", mesh_info=mi))(_placed(cfg, params, mi), batch)
+        out[f"{tag}/loss"] = np.array([float(loss), float(mloss)])
+        out[f"{tag}/grad_err"] = np.array(max(
+            float(np.abs(_np(g) - _np(p)).max() / max(np.abs(_np(p)).max(), 1e-12))
+            for g, p in zip(leaves(grads), leaves(plain))))
+    return out
+
+
+def case_lookup(mi22, mi14):
+    """Fault 3j: the embedding of the drawn tokens from a table in the serving
+    layout (``default_rules(fsdp=False)``: the vocab over model, the rows
+    whole) on (1, 4), and the table's gradient of a drawn weighting of it,
+    each gathered whole, beside the unsharded ones."""
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import ApplyCtx, mesh_scope
+
+    cfg, _, params = _port("tinyllama-1.1b")
+    tokens = _batch(cfg)["tokens"]
+    weight = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(B, T, cfg.d_model)).astype(np.float32))
+    specs = sharding.tree_shardings({"embed": params["embed"]},
+                                    {"embed": transformer.lm_spec(cfg)["embed"].axes}, mi14.mesh,
+                                    sharding.default_rules(mi14.mesh, fsdp=False))
+    out = {}
+    for tag, mi in (("plain", None), ("sharded", mi14)):
+        emb = params["embed"].detach().clone()
+        if mi is not None:
+            emb = sharding.shard_tree({"embed": emb}, specs, mi.mesh)["embed"]
+        emb.requires_grad_(True)
+        ctx = ApplyCtx(mode="train", mesh_info=mi)
+        with mesh_scope(ctx):
+            x = transformer._embed(cfg, {"embed": emb}, tokens, None, ctx)
+            (grad,) = torch.autograd.grad((x * weight).sum(), [emb])
+        out[f"{tag}/x"], out[f"{tag}/grad"] = _np(x), _np(grad)
+        if mi is not None:
+            out["table_placements"] = np.array(str(emb.placements))
+    return out
+
+
 def _trainer(name, mi, directory, **kw):
     from repro_torch.configs import RunConfig, ShapeConfig
     from repro_torch.distributed.sharding import replicated_specs, shard_tree
@@ -342,7 +405,8 @@ def case_refusals(mi22, mi14):
             "lru_scan": error(lambda: ops.lru_scan(d(a), d(a)))}
 
 
-CASES = ("forward", "moe", "options", "decode", "grads", "train", "compress", "refusals")
+CASES = ("forward", "moe", "options", "decode", "grads", "train", "compress", "refusals", "xlstm",
+         "lookup")
 
 
 def rank_main(rank, world, directory):
