@@ -1,0 +1,20 @@
+"""Run one cell of BENCHMARK.json once and print its result line.
+
+    python3 perfbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
+
+Needs as many CUDA cards as the cell asks for; exits non-zero, printing no
+result, without them.
+"""
+import time
+
+T_START = time.perf_counter()
+
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from perfbench import harness  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(harness.main(t_start=T_START))
